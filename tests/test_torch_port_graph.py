@@ -1,0 +1,189 @@
+"""PyTorch port vs the JAX package: DPT, coordinate encoder, intrinsics head,
+``encode_image`` and the reconstruction path, at H=64 (as tests/test_graphs.py).
+
+One set of random JAX variables (tiny decoder, full-width encoders) goes to
+the port through ``weights.from_flax``. Tolerances follow
+tests/test_torch_parity.py: 1e-4 per module tap, 1e-3 end to end.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from __graft_entry__ import _batch
+from zeroshape_tpu.metrics import eval3d as je
+from zeroshape_tpu.models.coord_enc import CoordEncRes as JCoordEncRes
+from zeroshape_tpu.models.dpt import DPTDepthModel as JDPT
+from zeroshape_tpu.models.dpt import HybridViT as JHybridViT
+from zeroshape_tpu.models.graph_shape import IntrHead as JIntrHead
+from zeroshape_tpu.models.graph_shape import ShapeGraph as JShapeGraph
+from zeroshape_tpu.runtime.checkpoint import convert_torch_state_dict
+from zeroshape_tpu_torch import config, recon, weights
+from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+
+from test_torch_harness import close, nchw, nhwc, random_variables
+
+H = 64
+SHARPEN = 25.0
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    opt = config.tiny_opt(H)
+    jmodel = JShapeGraph.from_opt(opt)
+    b = _batch(B=1, H=H, n_pts=8)
+    v = random_variables(jmodel, b, train=False, seed=3)
+    # keep the random depth head inside the [0, 1] clamp with spread
+    # (tests/test_torch_parity.py:_tame_depth_head)
+    head = v["params"]["dpt_depth"]["head_conv3"]
+    head["kernel"] = head["kernel"] * 1e-2
+    head["bias"] = np.full_like(head["bias"], 0.5)
+    port = ShapeGraph.from_opt(opt)
+    weights.load(port, weights.from_flax(v["params"], v["batch_stats"], impl_blocks=2, impl_mlp_linears=5))
+    rgb, mask = config.synthetic_image(H, seed=4)
+    return jmodel, v, port.eval(), {"rgb_input_map": rgb, "mask_input_map": mask}
+
+
+def test_dpt_backbone_taps(graphs):
+    _, v, port, batch = graphs
+    xs = batch["rgb_input_map"] * 2.0 - 1.0
+    want = JHybridViT().apply({"params": v["params"]["dpt_depth"]["dpt"]["pretrained"]}, jnp.asarray(xs))
+    with torch.no_grad():
+        got = port.dpt_depth.pretrained.model(nchw(xs))
+    close(nhwc(got[0]), want[0], 1e-4, "ResNetV2 stage0 tap")
+    close(nhwc(got[1]), want[1], 1e-4, "ResNetV2 stage1 tap")
+    close(got[2], want[2], 1e-4, "ViT block-8 tap")
+    close(got[3], want[3], 1e-4, "ViT block-11 tap")
+
+
+def test_dpt_depth_and_intr_feature(graphs):
+    _, v, port, batch = graphs
+    depth_j, feat_j = JDPT().apply({"params": v["params"]["dpt_depth"]}, jnp.asarray(batch["rgb_input_map"]))
+    with torch.no_grad():
+        depth, feat = port.dpt_depth(nchw(batch["rgb_input_map"]))
+    assert float(depth.std()) > 1e-3  # a live depth map, not a clamped constant
+    close(nhwc(feat), feat_j, 1e-4, "reassembled layer4 (intrinsics feature)")
+    close(nhwc(depth), depth_j, 1e-3, "depth")
+
+
+def test_coord_encoder(graphs):
+    _, v, port, _ = graphs
+    rng = np.random.default_rng(5)
+    cm = rng.normal(size=(2, H, H, 3)).astype(np.float32)
+    mask = (rng.uniform(size=(2, H, H, 1)) > 0.4).astype(np.float32)
+    want = JCoordEncRes(latent_dim=64).apply(
+        {"params": v["params"]["coord_encoder"], "batch_stats": v["batch_stats"]["coord_encoder"]},
+        jnp.asarray(cm), jnp.asarray(mask), False,
+    )
+    with torch.no_grad():
+        got = port.coord_encoder(nchw(cm), nchw(mask))
+    close(got, want, 1e-4)
+
+
+def test_intr_head(graphs):
+    _, v, port, _ = graphs
+    feat = np.random.default_rng(6).normal(size=(2, 2, 2, 768)).astype(np.float32)
+    want = JIntrHead().apply(
+        {"params": v["params"]["intr_head"], "batch_stats": v["batch_stats"]["intr_head"]}, jnp.asarray(feat), False
+    )
+    with torch.no_grad():
+        got = port.intr_proj(port.intr_head(nchw(feat)))
+    close(got, want, 1e-4)
+
+
+def test_encode_image_end_to_end(graphs):
+    jmodel, v, port, batch = graphs
+    want = jmodel.apply(v, {k: jnp.asarray(x) for k, x in batch.items()}, method=lambda m, b: m.encode_image(b))
+    with torch.no_grad():
+        got = port.encode_image({k: torch.from_numpy(x) for k, x in batch.items()})
+    for k in ("depth_pred", "intr_pred", "validity_mask", "seen_points", "latent_depth"):
+        close(got[k], want[k], 1e-3, k)
+
+
+def test_weight_round_trip(graphs):
+    """Port state dict -> the JAX package's torch importer -> the original trees."""
+    _, v, port, _ = graphs
+    sd = {k: x.numpy() for k, x in port.state_dict().items()}
+    params, stats, report = convert_torch_state_dict(sd, graph="shape", impl_blocks=2, impl_mlp_linears=5)
+    assert report["missing"] == []
+    assert report["unconsumed"] == []
+    for coll, got in (("params", params), ("batch_stats", stats)):
+        want = jax.tree_util.tree_flatten_with_path(v[coll])[0]
+        got_flat = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+        assert len(got_flat) == len(want)
+        for path, leaf in want:
+            np.testing.assert_array_equal(got_flat[path], np.asarray(leaf), err_msg=str(path))
+
+
+def test_seeded_init_follows_the_jax_initialisers():
+    """``weights.init_like_flax`` draws every tensor as the JAX module's own
+    init does: constants (zero biases, unit norms, the depth head's 0.05 bias,
+    the zero intrinsics projection) equal, random tensors with the same mean
+    and spread."""
+    opt = config.tiny_opt(H)
+    jmodel = JShapeGraph.from_opt(opt)
+    rngs = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}
+    init = jax.jit(lambda r, b: jmodel.init(r, b, train=False))  # faster than eager init
+    v = jax.tree.map(np.asarray, init(rngs, _batch(B=1, H=H, n_pts=8)))
+    want = weights.from_flax(v["params"], v["batch_stats"], impl_blocks=2, impl_mlp_linears=5)
+    got = weights.init_like_flax(ShapeGraph.from_opt(opt), seed=0).state_dict()
+    n_random = 0
+    for k, w in want.items():
+        g = got[k]
+        if torch.all(w == w.reshape(-1)[0]):
+            assert torch.equal(g, w), k
+        elif w.numel() >= 1000:
+            n_random += 1
+            s = float(w.std())
+            assert abs(float(g.std()) - s) < 0.1 * s, k
+            assert abs(float(g.mean()) - float(w.mean())) < 0.1 * s, k
+    assert n_random > 100
+
+
+def test_calibrate_random_field_sets_the_active_cells():
+    """``calibrate_random_field`` puts the top ``INSIDE`` share of the coarse
+    lattice inside the zero level and steepens the field until at most the
+    target count of cells is active; the reconstruction then finds exactly
+    that count and samples a surface."""
+    model = recon.build(config.tiny_opt(32), device="cpu", seed=0)
+    rgb, mask = config.synthetic_image(32, seed=1)
+    batch = {"rgb_input_map": rgb, "mask_input_map": mask}
+    target = 20  # of the 64 coarse cells at vox 16
+    _, gain, n_calibrated = recon.calibrate_random_field(model, batch, target=target, vox_res=16)
+    world, _, _, n_active, level = recon.reconstruct(
+        model, batch, torch.Generator().manual_seed(0), vox_res=16, capacity=64, num_points=200,
+        return_level=True,
+    )
+    assert 0 < n_calibrated <= target and gain >= 1
+    assert int(n_active[0]) == n_calibrated
+    inside = float((level[0, ::4, ::4, ::4] >= 0.5).float().mean())
+    assert abs(inside - recon.INSIDE) < 0.03
+    assert world.std(dim=0).min() > 0  # samples spread over a surface, not one fill value
+
+
+def test_reconstruct_level_grid_matches_jax(graphs):
+    """Image -> latents -> caches -> hierarchical level grid at vox 16, through
+    ``recon.reconstruct`` on the CPU against the same pipeline in JAX."""
+    jmodel, v, port, batch = graphs
+    vox, capacity = 16, 40
+    jb = {k: jnp.asarray(x) for k, x in batch.items()}
+    latent = jmodel.apply(v, jb, method=lambda m, b: m.encode_image(b))["latent_depth"]
+    caches = jmodel.apply(v, latent, method=lambda m, l: m.impl_network.encode(l))
+
+    def j_decode(pts):
+        return SHARPEN * jmodel.apply(v, caches, pts, method=lambda m, c, p: m.impl_network.decode(c, p)[0])
+
+    jlevel, jn, jids, jvalid = je.occupancy_grid_hierarchical(
+        j_decode, vox, capacity=capacity, return_stats=True, return_cells=True
+    )
+    model = recon.ReconModel(port, None, SHARPEN, torch.device("cpu"))
+    world, depth, intr, n_active, level = recon.reconstruct(
+        model, batch, torch.Generator().manual_seed(0), vox_res=vox, capacity=capacity,
+        num_points=500, return_level=True,
+    )
+    close(level, jlevel, 1e-3, "level grid")
+    assert n_active.tolist() == np.asarray(jn).tolist()
+    assert world.shape == (500, 3) and torch.isfinite(world).all() and world.abs().max() <= 1.5
+    assert intr.shape == (1, 3, 3) and depth.shape == (1, H, H, 1)

@@ -1,0 +1,117 @@
+"""Attribute-dict config and the two model configurations the port ships.
+
+Counterpart of ``zeroshape_tpu/config.py`` (the ``Config`` tree) and of the
+option builders in ``__graft_entry__.py`` (``_full_opt``, ``_tiny_opt``). The
+YAML loader with ``_parent_`` inheritance lives in the demo CLI only, so that
+nothing on the reconstruction path needs PyYAML.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+
+
+class Config(dict):
+    """Nested dict with attribute access; nested dicts become Configs."""
+
+    def __init__(self, d=None):
+        super().__init__()
+        for k, v in (d or {}).items():
+            self[k] = v
+
+    def __setitem__(self, key, value):
+        if isinstance(value, dict) and not isinstance(value, Config):
+            value = Config(value)
+        super().__setitem__(key, value)
+
+    def __getattr__(self, key):
+        try:
+            return self[key]
+        except KeyError as e:
+            raise AttributeError(key) from e
+
+    def __setattr__(self, key, value):
+        self[key] = value
+
+    def __deepcopy__(self, memo):
+        return Config({k: copy.deepcopy(v, memo) for k, v in self.items()})
+
+    def to_dict(self):
+        return {k: (v.to_dict() if isinstance(v, Config) else v) for k, v in self.items()}
+
+
+def full_opt(H=224):
+    """The shipped shape model (resnet coordinate encoder, no RGB encoder)."""
+    return Config(
+        {
+            "H": H,
+            "W": H,
+            "arch": {
+                "num_heads": 8,
+                "latent_dim": 256,
+                "win_size": 16,
+                "depth": {"encoder": "resnet", "n_blocks": 12, "dsp": 1},
+                "rgb": {"encoder": None, "n_blocks": 12},
+                "impl": {
+                    "n_channels": 256,
+                    "att_blocks": 2,
+                    "mlp_ratio": 4.0,
+                    "posenc_perlayer": False,
+                    "mlp_layers": 8,
+                    "posenc_3D": 0,
+                    "skip_in": [2, 4, 6],
+                },
+            },
+            "training": {
+                "n_sdf_points": 512,
+                "shape_loss": {"impt_weight": 1, "impt_thres": 0.01},
+                "depth_loss": {"grad_reg": 0.1, "depth_inv": True, "mask_shrink": False},
+            },
+            "loss_weight": {"shape": 1, "depth": None, "intr": None},
+            "optim": {
+                "lr": 3e-5,
+                "lr_ft": 1e-5,
+                "weight_decay": 0.05,
+                "fix_dpt": False,
+                "clip_norm": None,
+                "accum": 1,
+                "sched": False,
+            },
+        }
+    )
+
+
+def tiny_opt(H=32):
+    """Narrow decoder for fast tests (same encoder architecture)."""
+    opt = copy.deepcopy(full_opt(H))
+    opt.arch.latent_dim = 64
+    opt.arch.impl.n_channels = 64
+    opt.arch.impl.mlp_layers = 4
+    opt.arch.impl.skip_in = [2]
+    opt.arch.depth.n_blocks = 2
+    return opt
+
+
+def synthetic_image(H, seed=0, B=1):
+    """A seeded masked image: a soft-shaded ellipsoid over a white background.
+
+    Returns numpy NHWC ``rgb [B, H, H, 3]`` in [0, 1] and ``mask [B, H, H, 1]``
+    (a compact object, not noise), the batch layout of ``encode_image``.
+    """
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(H), np.arange(H), indexing="ij")
+    rgbs, masks = [], []
+    for _ in range(B):
+        cy, cx = rng.uniform(0.4, 0.6, 2) * H
+        ry, rx = rng.uniform(0.2, 0.35, 2) * H
+        d = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2
+        m = (d <= 1.0).astype(np.float32)
+        shade = np.sqrt(np.clip(1.0 - d, 0.0, 1.0))
+        color = rng.uniform(0.2, 0.9, 3)
+        rgb = shade[..., None] * color + rng.normal(0, 0.02, (H, H, 3))
+        rgb = rgb * m[..., None] + (1.0 - m[..., None])
+        rgbs.append(np.clip(rgb, 0.0, 1.0))
+        masks.append(m[..., None])
+    return np.stack(rgbs).astype(np.float32), np.stack(masks).astype(np.float32)

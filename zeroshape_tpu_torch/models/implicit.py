@@ -1,0 +1,157 @@
+"""Implicit occupancy decoder with masked joint attention (inference).
+
+Counterpart of ``zeroshape_tpu/models/implicit.py:44-254``. Information
+flows one way in the reference's joint sequence (latents -> points), so the
+latent trunk runs once: :meth:`Implicit.encode` returns each block's latent
+K/V cache, and :meth:`Implicit.decode` scores any number of query points
+against the caches. Each point attends to the cached latent keys plus its
+own key in one joint softmax.
+
+:meth:`Implicit.decode` is the plain version of the fused decoder kernel
+(``ops/implicit_kernel.py``): the CPU runs it, and the kernel is held to it.
+Names follow the reference layout: ``point_proj.proj``, ``latent_proj``,
+the ``pos_embed`` buffer, ``blocks_attn.{i}.{norm1,attn.qkv,attn.proj,norm2,
+mlp.fc1,mlp.fc2}``, ``norm``, ``impl_mlp.layers.{l}``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from zeroshape_tpu_torch.models import compute_autocast
+from zeroshape_tpu_torch.models.layers import Mlp, get_2d_sincos_pos_embed, softplus_beta, split_heads
+
+
+class ImplicitBlock(nn.Module):
+    """One pre-norm block over the (latents | points) masked joint sequence."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, last_layer: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = (dim // num_heads) ** -0.5
+        self.last_layer = last_layer
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = nn.Module()
+        self.attn.qkv = nn.Linear(dim, 3 * dim)
+        self.attn.proj = nn.Linear(dim, dim)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def latent_step(self, h):
+        """Latent self-attention update; returns (h_new, (k, v) [B, H, L, hd])."""
+        q, k, v = split_heads(self.attn.qkv(self.norm1(h)), self.num_heads)
+        if self.last_layer:
+            # the last block only produces point outputs; the latent state is
+            # dead once its k/v are cached (reference implicit.py:59-63)
+            return h, (k, v)
+        attn = ((q @ k.transpose(-2, -1)) * self.scale).float().softmax(dim=-1).to(v.dtype)
+        out = (attn @ v).transpose(1, 2).reshape(h.shape)
+        h = h + self.attn.proj(out)
+        return h + self.mlp(self.norm2(h)), (k, v)
+
+    def point_step(self, p, cache):
+        """Cross-attention to the cached latents plus the point's self term.
+
+        Returns (p_new, attn_vis [B, P, L]): the head mean of the normalised
+        cross-attention weights.
+        """
+        kh, vh = cache
+        qp, kp, vp = split_heads(self.attn.qkv(self.norm1(p)), self.num_heads)
+        cross = (qp @ kh.transpose(-2, -1)) * self.scale  # [B, H, P, L]
+        self_s = (qp * kp).sum(dim=-1, keepdim=True) * self.scale  # [B, H, P, 1]
+        joint = torch.cat([cross, self_s], dim=-1).float().softmax(dim=-1).to(vh.dtype)
+        out = joint[..., :-1] @ vh + joint[..., -1:] * vp
+        attn_vis = joint[..., :-1].float().mean(dim=1)
+        p = p + self.attn.proj(out.transpose(1, 2).reshape(p.shape))
+        return p + self.mlp(self.norm2(p)), attn_vis
+
+
+class MLPBlocks(nn.Module):
+    """Skip-connected occupancy MLP (reference implicit.py:133-184).
+
+    ``num_hidden_layers`` hidden linears plus the output linear, Softplus
+    (beta 100); the input ``[points | trunk]`` is re-concatenated after the
+    state (scaled by 1/sqrt(2)) at the ``skip_in`` layers.
+    """
+
+    def __init__(self, num_hidden_layers: int, n_channels: int, skip_in=()):
+        super().__init__()
+        self.skip_in = tuple(skip_in)
+        dims = [3 + n_channels] + [n_channels] * num_hidden_layers + [1]
+        self.layers = nn.ModuleList(
+            nn.Linear(dims[l] + (dims[0] if l in self.skip_in else 0), dims[l + 1])
+            for l in range(len(dims) - 1)
+        )
+
+    def forward(self, points, trunk_feat):
+        inputs = torch.cat([points.to(trunk_feat.dtype), trunk_feat], dim=-1)
+        x = inputs
+        for l, lin in enumerate(self.layers):
+            if l in self.skip_in:
+                x = torch.cat([x, inputs.to(x.dtype)], dim=-1) / math.sqrt(2.0)
+            x = lin(x)
+            if l < len(self.layers) - 1:
+                x = softplus_beta(x, 100.0)
+        return x
+
+
+class Implicit(nn.Module):
+    """Implicit occupancy function conditioned on visible-surface latents.
+
+    ``dtype`` is the compute dtype (bf16 runs under autocast); parameters
+    stay fp32. Only the shipped decoder options are ported: no 3D positional
+    encoding, no semantic stream, the skip MLP head, pos-embed on block 0.
+    """
+
+    def __init__(
+        self,
+        num_patches=196,
+        latent_dim=256,
+        n_channels=256,
+        n_blocks_attn=2,
+        n_layers_mlp=8,
+        num_heads=8,
+        mlp_ratio=4.0,
+        skip_in=(2, 4, 6),
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.num_heads = num_heads
+        self.point_proj = nn.Module()
+        self.point_proj.proj = nn.Linear(3, n_channels)
+        self.latent_proj = nn.Linear(latent_dim, n_channels)
+        pe = get_2d_sincos_pos_embed(n_channels, int(num_patches**0.5), cls_token=True)
+        self.register_buffer("pos_embed", torch.from_numpy(pe)[None])
+        self.blocks_attn = nn.ModuleList(
+            ImplicitBlock(n_channels, num_heads, mlp_ratio, last_layer=(i == n_blocks_attn - 1))
+            for i in range(n_blocks_attn)
+        )
+        self.norm = nn.LayerNorm(n_channels, eps=1e-6)
+        self.impl_mlp = MLPBlocks(n_layers_mlp, n_channels, skip_in)
+
+    def encode(self, latent_depth):
+        """Run the latent trunk once; returns the per-block (k, v) caches."""
+        with compute_autocast(latent_depth.device, self.dtype):
+            h = self.latent_proj(latent_depth)
+            caches = []
+            for l, blk in enumerate(self.blocks_attn):
+                if l == 0:
+                    h = h + self.pos_embed.to(h.dtype)
+                h, cache = blk.latent_step(h)
+                caches.append(cache)
+        return caches
+
+    def decode(self, caches, points_3D):
+        """Score ``points_3D [B, P, 3]`` against the caches -> (logits [B, P], attn_vis [B, P, L])."""
+        with compute_autocast(points_3D.device, self.dtype):
+            p = self.point_proj.proj(points_3D)
+            attn_vis = []
+            for blk, cache in zip(self.blocks_attn, caches):
+                p, attn = blk.point_step(p, cache)
+                attn_vis.append(attn)
+            occ = self.impl_mlp(points_3D, self.norm(p))
+        return occ[..., 0].float(), torch.stack(attn_vis, dim=-1).mean(dim=-1)

@@ -1,0 +1,185 @@
+"""Shared building blocks (counterpart of ``zeroshape_tpu/models/layers.py``).
+
+ViT blocks, conv-BN residual bottlenecks, weight-standardised convs with
+TF-SAME padding (the ResNetV2 hybrid stem) and the sin-cos positional
+embedding. Modules are NCHW inside; submodule names follow the reference
+torch state-dict layout so released checkpoints load without renaming.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Positional embeddings (layers.py:32-50)
+# ---------------------------------------------------------------------------
+
+def get_1d_sincos_pos_embed_from_grid(embed_dim: int, pos: np.ndarray) -> np.ndarray:
+    assert embed_dim % 2 == 0
+    omega = np.arange(embed_dim // 2, dtype=np.float64) / (embed_dim / 2.0)
+    omega = 1.0 / 10000**omega
+    out = np.einsum("m,d->md", pos.reshape(-1).astype(np.float64), omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int, cls_token: bool = False) -> np.ndarray:
+    grid_h = np.arange(grid_size, dtype=np.float32)
+    grid_w = np.arange(grid_size, dtype=np.float32)
+    grid = np.stack(np.meshgrid(grid_w, grid_h), axis=0)  # w first
+    grid = grid.reshape([2, 1, grid_size, grid_size])
+    emb_h = get_1d_sincos_pos_embed_from_grid(embed_dim // 2, grid[0])
+    emb_w = get_1d_sincos_pos_embed_from_grid(embed_dim // 2, grid[1])
+    pos_embed = np.concatenate([emb_h, emb_w], axis=1)
+    if cls_token:
+        pos_embed = np.concatenate([np.zeros([1, embed_dim]), pos_embed], axis=0)
+    return pos_embed.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Transformer layers (layers.py:74-162)
+# ---------------------------------------------------------------------------
+
+def gelu_exact(x):
+    """torch ``nn.GELU`` (exact erf form), as the reference trains with."""
+    return F.gelu(x)
+
+
+def softplus_beta(x, beta: float = 100.0):
+    """torch Softplus(beta): log(1 + exp(beta x)) / beta, linear above 20/beta."""
+    return F.softplus(x, beta=beta, threshold=20.0)
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact GELU -> fc2 (timm Mlp)."""
+
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int | None = None):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, out_dim or dim)
+
+    def forward(self, x):
+        return self.fc2(gelu_exact(self.fc1(x)))
+
+
+def split_heads(qkv, num_heads: int):
+    """[B, N, 3C] -> q, k, v each [B, H, N, hd]."""
+    B, N, C3 = qkv.shape
+    t = qkv.reshape(B, N, 3, num_heads, C3 // (3 * num_heads)).permute(2, 0, 3, 1, 4)
+    return t[0], t[1], t[2]
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention (timm vision_transformer.Attention)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        B, N, C = x.shape
+        q, k, v = split_heads(self.qkv(x), self.num_heads)
+        attn = (q @ k.transpose(-2, -1)) * (C // self.num_heads) ** -0.5
+        attn = attn.float().softmax(dim=-1).to(v.dtype)
+        out = (attn @ v).transpose(1, 2).reshape(B, N, C)
+        return self.proj(out)
+
+
+class ViTBlock(nn.Module):
+    """Pre-norm block: x += attn(LN(x)); x += mlp(LN(x)), LayerNorm eps 1e-6."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x):
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+
+# ---------------------------------------------------------------------------
+# Convolutions (layers.py:169-248)
+# ---------------------------------------------------------------------------
+
+class Conv(nn.Conv2d):
+    """Conv2d with torch-style symmetric padding ``kernel // 2``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1, bias: bool = True):
+        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=kernel // 2, bias=bias)
+
+
+def _same_pad_amount(size: int, k: int, s: int) -> int:
+    return max((math.ceil(size / s) - 1) * s + k - size, 0)
+
+
+def pad_same(x, kernel: int, stride: int, value: float = 0.0):
+    """TF-SAME padding of NCHW ``x``: the odd pixel goes to the bottom/right."""
+    ph = _same_pad_amount(x.shape[-2], kernel, stride)
+    pw = _same_pad_amount(x.shape[-1], kernel, stride)
+    return F.pad(x, [pw // 2, pw - pw // 2, ph // 2, ph - ph // 2], value=value)
+
+
+class StdConvSame(nn.Conv2d):
+    """Weight-standardised conv with TF-SAME padding (timm StdConv2dSame).
+
+    The kernel is standardised per output channel over (in, kh, kw) with
+    eps 1e-6, in fp32, before the (possibly bf16) convolution.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1, eps: float = 1e-6):
+        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=0, bias=False)
+        self.eps = eps
+
+    def forward(self, x):
+        w = self.weight.float()
+        var, mean = torch.var_mean(w.reshape(w.shape[0], -1), dim=1, unbiased=False)
+        w = (w - mean.reshape(-1, 1, 1, 1)) / torch.sqrt(var.reshape(-1, 1, 1, 1) + self.eps)
+        x = pad_same(x, self.kernel_size[0], self.stride[0])
+        return F.conv2d(x, w, None, self.stride)
+
+
+def max_pool_same(x, kernel: int = 3, stride: int = 2):
+    """TF-SAME max pool (timm MaxPool2dSame)."""
+    return F.max_pool2d(pad_same(x, kernel, stride, value=float("-inf")), kernel, stride)
+
+
+# ---------------------------------------------------------------------------
+# Conv-BN bottleneck (layers.py:251-295)
+# ---------------------------------------------------------------------------
+
+def BatchNorm(channels: int) -> nn.BatchNorm2d:
+    """BatchNorm2d with torch defaults (eps 1e-5); the port runs it in eval."""
+    return nn.BatchNorm2d(channels, eps=1e-5)
+
+
+class BottleneckConv(nn.Module):
+    """conv-BN-ReLU residual bottleneck (reference utils/layers.py:76-100).
+
+    Accepts ``[B, C]`` or ``[B, C, H, W]``; 2D inputs are lifted to 1x1 maps.
+    """
+
+    def __init__(self, channels: int, kernel: int = 1):
+        super().__init__()
+        self.linear1 = Conv(channels, channels, kernel, bias=False)
+        self.bn1 = BatchNorm(channels)
+        self.linear2 = Conv(channels, channels, kernel, bias=False)
+        self.bn2 = BatchNorm(channels)
+
+    def forward(self, x):
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[:, :, None, None]
+        h = F.relu(self.bn1(self.linear1(x)))
+        h = self.bn2(self.linear2(h))
+        out = F.relu(h + x)
+        return out[:, :, 0, 0] if squeeze else out

@@ -1,0 +1,192 @@
+"""Single-image 128^3 shape reconstruction (counterpart of ``bench.py:94-211``).
+
+``build`` makes the full-size shape model with seeded random weights;
+``reconstruct`` runs image -> latents -> K/V caches -> coarse-to-fine grid
+decode through the fused decoder kernel -> 10k area-uniform surface points
+in world coordinates.
+
+Random init proxy (bench.py:113-139): BCE-trained occupancy decoders
+saturate (|logit| ~ O(10) away from the surface) while random-init logits
+hover near 0, which would mark every coarse cell as near-surface. Scaling
+the logits by ``sharpen`` (25) keeps the architecture, FLOPs and zero-level
+set. A trained checkpoint sets ``sharpen`` to 1. A random field is also
+smooth and nearly flat, so its zero level either misses the grid or marks
+most coarse cells active; :func:`calibrate_random_field` sets its output
+layer so that it has a trained field's share of inside points and count of
+active cells.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import torch
+from torch.profiler import record_function
+
+from zeroshape_tpu_torch import resolve_device
+from zeroshape_tpu_torch.config import full_opt, synthetic_image
+from zeroshape_tpu_torch.metrics.eval3d import (
+    _select_active_cells,
+    coarse_lattice,
+    occupancy_grid_hierarchical,
+    resolve_hier_capacity,
+)
+from zeroshape_tpu_torch.models import resolve_compute_dtype
+from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode, pack_decoder_params
+from zeroshape_tpu_torch.ops.marching_cubes import sample_surface_points_cells
+from zeroshape_tpu_torch.weights import init_like_flax
+
+VOX_RES = 128
+CAPACITY = 4096  # refined-cell budget, the JAX engine default at vox 128
+NUM_POINTS = 10000
+SHARPEN = 25.0
+RANGE = (-1.5, 1.5)
+FACTOR = 4
+MARGIN = 0.45  # a coarse corner within 0.5 +- MARGIN marks its cells active
+# active coarse cells of trained fields at vox 128: 760-2,533 over 74 test
+# images for each of two checkpoints, medians 1,289 and 1,638 (docs/ROUND5.md:84-85)
+ACTIVE_TARGET = 1600
+# a ball whose surface crosses about ACTIVE_TARGET coarse cells fills about a
+# tenth of the 32^3 coarse cells
+INSIDE = 0.1
+
+
+@dataclass
+class ReconModel:
+    graph: ShapeGraph
+    packed: dict | None  # the kernel's packed decoder weights (CUDA only)
+    sharpen: float
+    device: torch.device
+
+    def repack(self):
+        """Re-pack the kernel weights after the graph's weights changed."""
+        if self.device.type == "cuda":
+            self.packed = pack_decoder_params(self.graph.impl_network)
+        return self
+
+
+def build(opt=None, device=None, seed=0):
+    """The shape model with seeded random weights, on ``device`` (None -> cuda)."""
+    device = resolve_device(device)
+    opt = opt or full_opt()
+    graph = ShapeGraph.from_opt(opt, dtype=resolve_compute_dtype(opt, device))
+    init_like_flax(graph, seed)
+    graph = graph.to(device).eval()
+    return ReconModel(graph, None, SHARPEN, device).repack()
+
+
+def _inputs(batch, device):
+    return {
+        k: torch.as_tensor(batch[k], dtype=torch.float32, device=device)
+        for k in ("rgb_input_map", "mask_input_map")
+    }
+
+
+def calibrate_random_field(model, batch, target=ACTIVE_TARGET, vox_res=VOX_RES, rng=RANGE):
+    """Set the random decoder's output layer so that ``batch``'s field looks
+    like a trained one on the coarse lattice: its zero level encloses the
+    top ``INSIDE`` share of the lattice points, and it is steep enough that
+    at most ``target`` cells are active.
+
+    For random weights only. A random decoder's field is smooth across the
+    whole grid and varies by less than the sharpened margin, so with the
+    zero level anywhere in it most coarse cells are active, far more than a
+    trained field's few cells along the surface. The layer's bias moves the
+    zero level (the shift) and a power-of-two gain on the layer, exact in
+    bf16, steepens the field. The gain is the least of 1, 2, ..., 2^12 that
+    brings the count to ``target``, or 2^12 if none does. Returns
+    ``(shift, gain, n_active)``.
+    """
+    graph = model.graph
+    with torch.inference_mode():
+        latent = graph.encode_image(_inputs(batch, model.device))["latent_depth"]
+        caches = graph.impl_network.encode(latent)
+        pts = coarse_lattice(vox_res, rng, FACTOR, model.device)
+        n = vox_res // FACTOR + 1
+        logits = fused_decode(graph.impl_network, caches, pts, model.packed).reshape(n, n, n)
+        shift = float(torch.quantile(logits.flatten().float(), 1.0 - INSIDE))
+        for gain in (2.0**k for k in range(13)):
+            occ = torch.sigmoid(model.sharpen * gain * (logits - shift))
+            count = int(_select_active_cells(occ, MARGIN, 1)[2])
+            if count <= target:
+                break
+    out = graph.impl_network.impl_mlp.layers[-1]
+    with torch.no_grad():
+        out.weight.mul_(gain)
+        out.bias.sub_(shift).mul_(gain)
+    model.repack()
+    return shift, gain, count
+
+
+def synthetic_setup(device=None):
+    """The full-size main path on seeded random weights and a seeded
+    synthetic 224^2 image, calibrated and warmed up once.
+
+    Returns ``(model, batch, generator, calibration)``, the last being
+    :func:`calibrate_random_field`'s ``(shift, gain, n_active)``.
+    """
+    model = build(device=device, seed=0)
+    rgb, mask = synthetic_image(224, seed=0)
+    batch = {"rgb_input_map": rgb, "mask_input_map": mask}
+    calibration = calibrate_random_field(model, batch)
+    generator = torch.Generator(device=model.device).manual_seed(0)
+    reconstruct(model, batch, generator)
+    torch.cuda.synchronize(model.device)
+    return model, batch, generator, calibration
+
+
+def time_reconstructions(model, batch, generator, reps=5):
+    """Host-clock seconds of ``reps`` reconstructions, each ending in a sync."""
+    seconds = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        reconstruct(model, batch, generator)
+        torch.cuda.synchronize(model.device)
+        seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+@torch.inference_mode()
+def reconstruct(
+    model,
+    batch,
+    generator=None,
+    vox_res=VOX_RES,
+    capacity=CAPACITY,
+    num_points=NUM_POINTS,
+    rng=RANGE,
+    return_level=False,
+):
+    """One image -> (world points [P, 3], depth_pred [1, H, W, 1], intr_pred [1, 3, 3], n_active [1]).
+
+    ``batch`` holds NHWC ``rgb_input_map [1, H, W, 3]`` and
+    ``mask_input_map [1, H, W, 1]`` (numpy or tensors). With
+    ``return_level`` the level grid ``[1, S, S, S]`` comes last.
+    """
+    graph, dev = model.graph, model.device
+    inputs = _inputs(batch, dev)
+    if inputs["rgb_input_map"].shape[0] != 1:
+        raise ValueError("reconstruct takes one image at a time")
+    # the spans name the stages in a torch.profiler trace (profile_recon.py)
+    with record_function("encode_image"):
+        out = graph.encode_image(inputs)
+    with record_function("latent_trunk"):
+        caches = graph.impl_network.encode(out["latent_depth"])
+
+    def decode_fn(pts):  # [1, T, 3] -> [1, T]
+        return model.sharpen * fused_decode(graph.impl_network, caches, pts[0], model.packed)[None]
+
+    # each pass is one decode call: the kernel takes any number of points
+    tile = resolve_hier_capacity(vox_res, capacity, FACTOR) * (FACTOR + 1) ** 3
+    with record_function("grid_decode"):
+        level, n_active, ids, valid = occupancy_grid_hierarchical(
+            decode_fn, vox_res, rng, batch_size=1, factor=FACTOR, capacity=capacity, margin=MARGIN,
+            tile_points=tile, return_stats=True, return_cells=True, device=dev,
+        )
+    with record_function("surface_sample"):
+        pts = sample_surface_points_cells(level[0], ids[0], valid[0], generator, num_points, factor=FACTOR)
+        world = pts / (vox_res + 1) * (rng[1] - rng[0]) + rng[0]
+    result = (world, out["depth_pred"], out["intr_pred"], n_active)
+    return result + (level,) if return_level else result
