@@ -187,3 +187,26 @@ def test_reconstruct_level_grid_matches_jax(graphs):
     assert n_active.tolist() == np.asarray(jn).tolist()
     assert world.shape == (500, 3) and torch.isfinite(world).all() and world.abs().max() <= 1.5
     assert intr.shape == (1, 3, 3) and depth.shape == (1, H, H, 1)
+
+
+def test_reconstruct_dense_level_grid_matches_jax(graphs):
+    """The dense decode posture (``hier=False``): the full (vox+1)^3 grid
+    through the decoder and the dense sampler, against the JAX dense decode."""
+    jmodel, v, port, batch = graphs
+    vox = 16
+    jb = {k: jnp.asarray(x) for k, x in batch.items()}
+    latent = jmodel.apply(v, jb, method=lambda m, b: m.encode_image(b))["latent_depth"]
+    caches = jmodel.apply(v, latent, method=lambda m, l: m.impl_network.encode(l))
+
+    def j_decode(pts):
+        return SHARPEN * jmodel.apply(v, caches, pts, method=lambda m, c, p: m.impl_network.decode(c, p)[0])
+
+    S = vox + 1
+    jlevel = je.occupancy_grid(j_decode, je.get_dense_3D_grid(vox), 1, tile_points=S * S).reshape(1, S, S, S)
+    model = recon.ReconModel(port, None, SHARPEN, torch.device("cpu"))
+    world, _, _, n_active, level = recon.reconstruct(
+        model, batch, torch.Generator().manual_seed(0), vox_res=vox, num_points=300, return_level=True, hier=False,
+    )
+    close(level, jlevel, 1e-3, "dense level grid")
+    assert n_active is None
+    assert world.shape == (300, 3) and torch.isfinite(world).all() and world.abs().max() <= 1.5

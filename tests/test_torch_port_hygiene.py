@@ -8,8 +8,9 @@ import pytest
 import torch
 
 from __graft_entry__ import _full_opt, _tiny_opt
-from zeroshape_tpu_torch import config, recon
+from zeroshape_tpu_torch import camera, config, recon
 from zeroshape_tpu_torch.metrics import eval3d
+from zeroshape_tpu_torch.runtime import shape_engine
 from zeroshape_tpu_torch.models import resolve_compute_dtype
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -57,6 +58,8 @@ def test_port_sources_name_no_jax_package():
         lambda: recon.build(config.tiny_opt(32)),
         lambda: eval3d.get_dense_3D_grid(4),
         lambda: eval3d.occupancy_grid_hierarchical(lambda p: p[..., 0], 8),
+        lambda: camera.get_rotation_sphere(2, 2, 2),
+        lambda: shape_engine.evaluate(None, [], config.eval_opt(config.tiny_opt(32)), ".", ["prim"]),
     ],
 )
 def test_default_device_needs_cuda(entry, monkeypatch):

@@ -1,4 +1,4 @@
-"""Camera geometry in fp32 (counterpart of ``zeroshape_tpu/camera.py:69-141``).
+"""Camera geometry in fp32 (counterpart of ``zeroshape_tpu/camera.py:69-243``).
 
 Points are ``[..., N, 3]``, intrinsics ``[..., 3, 3]``. The pixel grid is
 integer pixel coordinates (x, y, 1) with no half-pixel offset.
@@ -6,7 +6,10 @@ integer pixel coordinates (x, y, 1) with no half-pixel offset.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from zeroshape_tpu_torch import resolve_device
 
 
 def valid_norm_fac(seen_points, mask, eps=0.0):
@@ -57,3 +60,54 @@ def unproj_depth(depth, intr):
     pix = get_pixel_grid(H, W, device=depth.device)
     rays = torch.einsum("nk,bjk->bnj", pix, K_inv)
     return rays * depth.float().reshape(B, H * W, 1)
+
+
+# ---------------------------------------------------------------------------
+# rotation builders and the brute-force rotation sphere (camera.py:169-243)
+# ---------------------------------------------------------------------------
+
+
+def _rot(rows):
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def _rot_azim(angles_deg):
+    """Rotations about y by ``angles_deg [...]`` -> ``[..., 3, 3]``."""
+    a = torch.deg2rad(angles_deg)
+    c, s, z, o = torch.cos(a), torch.sin(a), torch.zeros_like(a), torch.ones_like(a)
+    return _rot([[c, z, s], [z, o, z], [-s, z, c]])
+
+
+def _rot_elev(angles_deg):
+    """Rotations about x by ``angles_deg [...]`` -> ``[..., 3, 3]``."""
+    a = torch.deg2rad(angles_deg)
+    c, s, z, o = torch.cos(a), torch.sin(a), torch.zeros_like(a), torch.ones_like(a)
+    return _rot([[o, z, z], [z, c, -s], [z, s, c]])
+
+
+def _rot_roll(angles_deg):
+    """Rotations about z by ``angles_deg [...]`` -> ``[..., 3, 3]``."""
+    a = torch.deg2rad(angles_deg)
+    c, s, z, o = torch.cos(a), torch.sin(a), torch.zeros_like(a), torch.ones_like(a)
+    return _rot([[c, s, z], [-s, c, z], [z, z, o]])
+
+
+# axis permutation applied before the Euler product (reference camera.py:223-227)
+R_PERMUTE = np.array([[-1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, -1.0, 0.0]], dtype=np.float32)
+
+
+def get_rotation_sphere(azim_sample=4, elev_sample=4, roll_sample=4, scales=1.0, device=None):
+    """All rotations ``R = scale * Rz(roll) Rx(elev) Ry(azim) R_PERMUTE``.
+
+    Returns ``[len(scales) * azim * elev * roll, 3, 3]`` fp32 on ``device``
+    (None -> cuda), ordered scale-major, then azim > elev > roll: 6912
+    rotations at (24, 24, 12).
+    """
+    device = resolve_device(device)
+    if isinstance(scales, (int, float)):
+        scales = (float(scales),)
+    grid = [np.linspace(0.0, 360.0, num=n, endpoint=False) for n in (azim_sample, elev_sample, roll_sample)]
+    A, E, RL = (torch.as_tensor(x.reshape(-1), dtype=torch.float32, device=device)
+                for x in np.meshgrid(*grid, indexing="ij"))
+    R = _rot_roll(RL) @ _rot_elev(E) @ _rot_azim(A) @ torch.as_tensor(R_PERMUTE, device=device)
+    return torch.cat([s * R for s in scales], dim=0)

@@ -1,4 +1,5 @@
-"""Attribute-dict config and the two model configurations the port ships.
+"""Attribute-dict config, the two model configurations the port ships, and
+the evaluation options.
 
 Counterpart of ``zeroshape_tpu/config.py`` (the ``Config`` tree) and of the
 option builders in ``__graft_entry__.py`` (``_full_opt``, ``_tiny_opt``). The
@@ -91,6 +92,30 @@ def tiny_opt(H=32):
     opt.arch.impl.mlp_layers = 4
     opt.arch.impl.skip_in = [2]
     opt.arch.depth.n_blocks = 2
+    return opt
+
+
+def eval_opt(opt, **eval_overrides):
+    """``opt`` with the evaluation sections of ``options/shape.yaml`` (``eval``
+    and the ``data`` keys the evaluator reads), ``eval`` keys overridden by
+    ``eval_overrides``. A copy; ``opt`` is not changed."""
+    opt = copy.deepcopy(opt)
+    opt.eval = {
+        "batch_size": 2,
+        "brute_force": False,
+        "vox_res": 64,
+        "num_points": 10000,
+        "range": [-1.5, 1.5],
+        "icp": False,
+        "bf_prune": None,
+        "bf_fast_coarse": True,
+        "hier_decode": True,
+        "hier_final": False,
+        "hier_capacity": None,
+        "f_thresholds": [0.005, 0.01, 0.02, 0.05, 0.1, 0.2],
+        **eval_overrides,
+    }
+    opt.data = {"dataset_test": "synthetic", "num_classes_test": 15}
     return opt
 
 

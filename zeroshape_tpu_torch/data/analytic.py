@@ -1,0 +1,213 @@
+"""Analytic-SDF scenes with exact ground truth, built in memory (numpy only).
+
+A copy of the scene functions of ``zeroshape_tpu/data/analytic.py`` (SDF
+primitives, ``make_sdf``, ``_normals``, ``look_at_pose``, ``render_scene``,
+``surface_points``, ``sdf_samples``, ``_camera_ring``) and of
+``data/common.py:pose_from_Rt``. :func:`eval_samples` gives the samples
+that ``generate_dataset`` followed by ``SyntheticDataset(split="test")``
+would load, without PIL and without writing files.
+
+Conventions: the object is centred at the origin with radius <= ~0.5; the
+camera is OpenCV-style (x right, y down, z forward) and ``pose`` is the
+world->camera ``[R|t]``; depth maps hold z-depth at integer pixel coordinates.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+SDF_KINDS = ("sphere", "box", "torus", "capsule", "box_sphere")
+VAL_CAP = 10  # test images per category (data/synthetic.py:39-41)
+
+
+def _sdf_sphere(p, r):
+    return np.linalg.norm(p, axis=-1) - r
+
+
+def _sdf_box(p, half, round_r=0.02):
+    q = np.abs(p) - (np.asarray(half) - round_r)
+    outside = np.linalg.norm(np.maximum(q, 0.0), axis=-1)
+    inside = np.minimum(np.max(q, axis=-1), 0.0)
+    return outside + inside - round_r
+
+
+def _sdf_torus(p, R, r):
+    q = np.stack([np.linalg.norm(p[..., [0, 2]], axis=-1) - R, p[..., 1]], axis=-1)
+    return np.linalg.norm(q, axis=-1) - r
+
+
+def _sdf_capsule(p, a, b, r):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    pa, ba = p - a, b - a
+    h = np.clip((pa @ ba) / (ba @ ba), 0.0, 1.0)
+    return np.linalg.norm(pa - h[..., None] * ba, axis=-1) - r
+
+
+def make_sdf(kind, rng=None):
+    """An SDF callable and an albedo for one of :data:`SDF_KINDS`; with
+    ``rng`` the shape parameters are jittered."""
+    u = (lambda lo, hi: float(rng.uniform(lo, hi))) if rng is not None else (lambda lo, hi: 0.5 * (lo + hi))
+    if kind == "sphere":
+        r = u(0.3, 0.45)
+        sdf = lambda p: _sdf_sphere(p, r)  # noqa: E731
+        albedo = (0.9, 0.3, 0.25)
+    elif kind == "box":
+        half = (u(0.2, 0.42), u(0.2, 0.42), u(0.2, 0.42))
+        sdf = lambda p: _sdf_box(p, half)  # noqa: E731
+        albedo = (0.25, 0.55, 0.9)
+    elif kind == "torus":
+        R, r = u(0.26, 0.36), u(0.1, 0.16)
+        sdf = lambda p: _sdf_torus(p, R, r)  # noqa: E731
+        albedo = (0.3, 0.85, 0.4)
+    elif kind == "capsule":
+        h, r = u(0.18, 0.3), u(0.12, 0.2)
+        a, b = (0.0, -h, 0.0), (0.0, h, 0.0)
+        sdf = lambda p: _sdf_capsule(p, a, b, r)  # noqa: E731
+        albedo = (0.9, 0.75, 0.2)
+    elif kind == "box_sphere":  # union: a box with a sphere cap on top (-y)
+        half = (u(0.24, 0.34), u(0.14, 0.2), u(0.24, 0.34))
+        r = u(0.16, 0.24)
+        c = (0.0, -(half[1] + 0.6 * r), 0.0)
+        sdf = lambda p: np.minimum(_sdf_box(p, half), _sdf_sphere(p - np.asarray(c), r))  # noqa: E731
+        albedo = (0.75, 0.4, 0.85)
+    else:
+        raise ValueError(f"unknown SDF kind {kind!r} (one of {SDF_KINDS})")
+    return sdf, np.asarray(albedo, np.float32)
+
+
+def _normals(sdf, p, eps=1e-4):
+    e = np.zeros((3, 3))
+    np.fill_diagonal(e, eps)
+    n = np.stack([sdf(p + e[i]) - sdf(p - e[i]) for i in range(3)], axis=-1)
+    return n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+
+
+def look_at_pose(cam_pos):
+    """World->camera ``[R|t]`` (3x4) of an OpenCV camera at ``cam_pos``
+    looking at the origin, world +y mapping to image up."""
+    C = np.asarray(cam_pos, np.float64)
+    f = -C / np.linalg.norm(C)
+    up = np.array([0.0, 1.0, 0.0])
+    if abs(f @ up) > 0.98:
+        up = np.array([0.0, 0.0, 1.0])
+    r = np.cross(up, f)
+    r /= np.linalg.norm(r)
+    d = np.cross(f, r)
+    R = np.stack([r, d, f], axis=0)
+    t = -R @ C
+    return np.concatenate([R, t[:, None]], axis=1).astype(np.float32)
+
+
+def render_scene(sdf, albedo, K, pose, H, W, n_steps=128, s_max=6.0, hit_eps=5e-4):
+    """Sphere-trace ``sdf`` through the camera (K, pose) -> (rgb [H, W, 3] in
+    [0, 1] on white, z-depth [H, W] with 0 on the background, mask [H, W])."""
+    pose = np.asarray(pose, np.float64)
+    R, t = pose[:, :3], pose[:, 3]
+    C = -R.T @ t
+    xs, ys = np.meshgrid(np.arange(W), np.arange(H))
+    pix = np.stack([xs, ys, np.ones_like(xs)], axis=-1).reshape(-1, 3)
+    r_cam = pix @ np.linalg.inv(np.asarray(K, np.float64)).T
+    d_w = r_cam @ R  # R^T r, unnormalised: s is exactly z-depth
+    d_norm = np.linalg.norm(d_w, axis=-1)
+
+    s = np.full(len(d_w), 1e-4)
+    alive = np.ones(len(d_w), bool)
+    for _ in range(n_steps):
+        x = C + s[alive, None] * d_w[alive]
+        dist = sdf(x)
+        s[alive] = s[alive] + dist / d_norm[alive]
+        sub = (np.abs(dist) > hit_eps) & (s[alive] < s_max)
+        if not sub.any():
+            break
+        alive[alive] = sub
+    x = C + s[:, None] * d_w
+    hit = (np.abs(sdf(x)) <= 10 * hit_eps) & (s < s_max) & (s > 0)
+
+    depth = np.where(hit, s, 0.0).reshape(H, W).astype(np.float32)
+    rgb = np.ones((H * W, 3), np.float32)
+    if hit.any():
+        n = _normals(sdf, x[hit])
+        light = np.array([0.4, -0.7, -0.6])
+        light = light / np.linalg.norm(light)
+        lam = np.clip((n @ light), 0.0, 1.0)
+        fill = 0.5 * np.clip(n @ np.array([-0.6, 0.2, -0.77]), 0.0, 1.0)
+        rgb[hit] = np.clip(albedo * (0.25 + 0.65 * lam + fill)[:, None], 0, 1)
+    return rgb.reshape(H, W, 3), depth, hit.reshape(H, W)
+
+
+def surface_points(sdf, n, rng, box=0.65, newton_iters=10, tol=1e-3):
+    """``n`` surface points: uniform seeds projected along the SDF gradient."""
+    out = []
+    got = 0
+    while got < n:
+        x = rng.uniform(-box, box, size=(4 * n, 3))
+        for _ in range(newton_iters):
+            x = x - sdf(x)[:, None] * _normals(sdf, x)
+        x = x[np.abs(sdf(x)) < tol]
+        out.append(x)
+        got += len(x)
+        if len(x) == 0:
+            raise RuntimeError("surface projection found no surface")
+    return np.concatenate(out)[:n].astype(np.float32)
+
+
+def sdf_samples(sdf, n, rng, box=0.7, near_sigma=0.05):
+    """SDF supervision samples: half uniform, half near the surface; values
+    carry the +0.003 that the loader subtracts."""
+    n_uni = n // 2
+    pts_u = rng.uniform(-box, box, size=(n_uni, 3))
+    surf = surface_points(sdf, n - n_uni, rng)
+    pts_s = surf + rng.normal(0.0, near_sigma, size=surf.shape)
+    pts = np.concatenate([pts_u, pts_s]).astype(np.float32)
+    return pts, (sdf(pts) + 0.003).astype(np.float32)
+
+
+def _camera_ring(n_views, rng, dist=1.78):
+    """Camera centres on a ring of azimuths and jittered elevations."""
+    cams = []
+    for v in range(n_views):
+        az = 2 * np.pi * (v + rng.uniform(-0.2, 0.2)) / n_views
+        el = np.deg2rad(rng.uniform(-35.0, 35.0))
+        cams.append(dist * np.array([np.cos(el) * np.sin(az), np.sin(el), -np.cos(el) * np.cos(az)]))
+    return cams
+
+
+def pose_from_Rt(Rt):
+    """``[R|t]`` -> the loaders' 3x4 pose (``data/common.py:105-110``)."""
+    pose = np.zeros((3, 4), np.float32)
+    pose[:3, :3] = Rt[:3, :3]
+    pose[:3, 3] = Rt[:3, 3]
+    return pose
+
+
+def eval_samples(n_objects=2, n_views=2, H=224, seed=0, n_pc_points=10000, n_sdf_points=20000, focal=1.3875):
+    """The test split of an analytic dataset, as the loader would give it.
+
+    Walks the generator of ``generate_dataset(root, n_objects, n_views, H,
+    seed, n_pc_points=..., n_sdf_points=..., val_views=1)`` with the same rng
+    draws, renders only each object's last view (the test view) and returns
+    the samples ``SyntheticDataset(opt, split="test")`` loads, at most 10:
+    ``rgb_input_map [H, H, 3]`` through the uint8 round trip of the PNG,
+    ``mask_input_map = depth != 0`` ``[H, H, 1]``, ``pose_gt [3, 4]``,
+    ``dpc = {"points": [n_pc_points, 3]}``, ``idx`` and ``category_label``
+    (0, category ``"prim"``).
+    """
+    rng = np.random.default_rng(seed)
+    f = focal * H
+    K = np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    samples = []
+    for o in range(min(n_objects, VAL_CAP)):
+        sdf, albedo = make_sdf(SDF_KINDS[o % len(SDF_KINDS)], rng)
+        pc = surface_points(sdf, n_pc_points, rng)
+        sdf_samples(sdf, n_sdf_points, rng)  # the writer's draws, to keep the stream
+        pose = look_at_pose(_camera_ring(n_views, rng)[-1])
+        rgb, depth, _ = render_scene(sdf, albedo, K, pose, H, H)
+        samples.append({
+            "idx": np.int64(len(samples)),
+            "category_label": np.int64(0),
+            "pose_gt": pose_from_Rt(pose),
+            "rgb_input_map": (rgb * 255).astype(np.uint8).astype(np.float32) / 255.0,
+            "mask_input_map": (depth != 0).astype(np.float32)[..., None],
+            "dpc": {"points": pc},
+        })
+    return samples

@@ -13,16 +13,12 @@ a CUDA tensor goes to the kernel, or the wrapper raises. It never falls back.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import time
 
 import torch
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-_SOURCE = os.path.join(_CSRC, "implicit_decoder.cu")
-_BUILD_DIR = os.path.join(_CSRC, "build")
-_LIBRARY = os.path.join(_BUILD_DIR, "libzs_implicit_decoder.so")
+from zeroshape_tpu_torch.ops import _build
+
+_SOURCE, _NAME = "implicit_decoder.cu", "zs_implicit_decoder"
 
 # the shapes the kernel is compiled for (the shipped decoder)
 C, N_HEADS, HEAD_DIM, N_BLOCKS, HIDDEN, N_LINEARS = 256, 8, 32, 2, 1024, 9
@@ -149,42 +145,16 @@ def build():
     Returns ``(seconds spent building, compiler output)``; 0 and "" when the
     library was already current. Raises ``RuntimeError`` if ``nvcc`` fails.
     """
-    if os.path.exists(_LIBRARY) and os.path.getmtime(_LIBRARY) >= os.path.getmtime(_SOURCE):
-        return 0.0, ""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIBRARY}.{os.getpid()}.tmp"
-    cmd = [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, _SOURCE,
-    ]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, _LIBRARY)
-    return seconds, log
-
-
-_LIB = None
+    return _build.build(_SOURCE, _NAME)
 
 
 def _library():
-    global _LIB
-    if _LIB is None:
-        build()
-        lib = ctypes.CDLL(_LIBRARY)
-        lib.zs_implicit_decode.argtypes = [
+    return _build.library(_SOURCE, _NAME, {
+        "zs_implicit_decode": [
             ctypes.POINTER(_DecoderParams), ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.zs_implicit_decode.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        ],
+    })
 
 
 def _ptr(t, dtype, shape, device):

@@ -79,11 +79,22 @@ def _gather_corners(level, base_idx):
     return level.reshape(-1)[(idx[..., 0] * S + idx[..., 1]) * S + idx[..., 2]]
 
 
-def triangle_areas(level, isoval=0.5):
-    """Areas of all candidate triangles of the dense grid, ``[n^3 * MAX_TRIS]``."""
+def triangle_areas(level, isoval=0.5, slab=8):
+    """Areas of all candidate triangles of the dense grid, ``[n^3 * MAX_TRIS]``.
+
+    The grid goes ``slab`` planes of cubes at a time along its first axis
+    (the largest divisor of n not above ``slab``), which bounds the
+    temporaries to one slab (``marching_cubes.py:187-204``).
+    """
     n = level.shape[0] - 1
-    vals = [level[dx : dx + n, dy : dy + n, dz : dz + n] for dx, dy, dz in _CORNER_OFF.tolist()]
-    return _corner_areas(vals, isoval).reshape(-1)
+    slab = max(d for d in range(1, min(slab, n) + 1) if n % d == 0)
+    areas = []
+    for i0 in range(0, n, slab):
+        vals = [
+            level[i0 + dx : i0 + dx + slab, dy : dy + n, dz : dz + n] for dx, dy, dz in _CORNER_OFF.tolist()
+        ]
+        areas.append(_corner_areas(vals, isoval).reshape(-1))
+    return torch.cat(areas)
 
 
 def _draw_slots(cdf, u):
@@ -106,6 +117,31 @@ def _sample_from_tris(level, base_idx, tri_ids, r, isoval):
     b1 = su * (1.0 - r[:, 1:])
     b2 = su * r[:, 1:]
     return b0 * tri[:, 0] + b1 * tri[:, 1] + b2 * tri[:, 2]
+
+
+def sample_surface_points(level, generator=None, num_points=10000, isoval=0.5, u_slots=None, r_bary=None):
+    """Area-uniform points on the isosurface of the dense grid ``level [S, S, S]``
+    (``marching_cubes.py:207-238``): every cube's triangle areas in z-slabs,
+    their CDF, inverse-CDF draws, and only the drawn triangles rebuilt.
+
+    ``generator`` and the injected uniforms ``u_slots [num_points]``,
+    ``r_bary [num_points, 2]`` are as for :func:`sample_surface_points_cells`.
+    Returns ``[num_points, 3]`` in grid-index coordinates, zeros if the grid
+    has no surface.
+    """
+    n = level.shape[0] - 1
+    dev = level.device
+    cdf = torch.cumsum(triangle_areas(level, isoval), dim=0)
+    total = cdf[-1]
+    if u_slots is None:
+        u_slots = torch.rand(num_points, generator=generator, device=dev)
+    if r_bary is None:
+        r_bary = torch.rand(num_points, 2, generator=generator, device=dev)
+    slots = _draw_slots(cdf, u_slots)
+    cube = slots // MAX_TRIS
+    base = torch.stack([cube // (n * n), (cube // n) % n, cube % n], dim=-1)
+    pts = _sample_from_tris(level, base, slots % MAX_TRIS, r_bary, isoval)
+    return torch.where(total > 0, pts, torch.zeros_like(pts))
 
 
 def sample_surface_points_cells(

@@ -3,7 +3,9 @@
 ``build`` makes the full-size shape model with seeded random weights;
 ``reconstruct`` runs image -> latents -> K/V caches -> coarse-to-fine grid
 decode through the fused decoder kernel -> 10k area-uniform surface points
-in world coordinates.
+in world coordinates. ``reconstruct_batch`` does the same for a batch, in
+either decode posture of the evaluation: coarse-to-fine, or the dense grid
+(also through the kernel) with the dense sampler.
 
 Random init proxy (bench.py:113-139): BCE-trained occupancy decoders
 saturate (|logit| ~ O(10) away from the surface) while random-init logits
@@ -29,13 +31,15 @@ from zeroshape_tpu_torch.config import full_opt, synthetic_image
 from zeroshape_tpu_torch.metrics.eval3d import (
     _select_active_cells,
     coarse_lattice,
+    get_dense_3D_grid,
+    occupancy_grid,
     occupancy_grid_hierarchical,
     resolve_hier_capacity,
 )
 from zeroshape_tpu_torch.models import resolve_compute_dtype
 from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
 from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode, pack_decoder_params
-from zeroshape_tpu_torch.ops.marching_cubes import sample_surface_points_cells
+from zeroshape_tpu_torch.ops.marching_cubes import sample_surface_points, sample_surface_points_cells
 from zeroshape_tpu_torch.weights import init_like_flax
 
 VOX_RES = 128
@@ -149,6 +153,68 @@ def time_reconstructions(model, batch, generator, reps=5):
 
 
 @torch.inference_mode()
+def reconstruct_batch(
+    model,
+    batch,
+    generator=None,
+    vox_res=VOX_RES,
+    capacity=CAPACITY,
+    num_points=NUM_POINTS,
+    rng=RANGE,
+    hier=True,
+):
+    """Images -> surface samples, in either decode posture of ``_recon_fn``
+    (``shape_engine.py:142-319``).
+
+    ``hier=True`` is the coarse-to-fine decode (two K1 launches a sample) and
+    the sampler over its active cells; ``hier=False`` decodes the dense
+    ``(vox_res + 1)^3`` grid (one K1 launch a sample) and samples it with the
+    dense sampler. ``batch`` holds NHWC ``rgb_input_map [B, H, W, 3]`` and
+    ``mask_input_map [B, H, W, 1]`` (numpy or tensors).
+
+    Returns ``(out, level [B, S, S, S], world [B, num_points, 3],
+    n_active [B] or None)``: ``out`` is ``encode_image``'s dict, ``n_active``
+    the hierarchical decode's active-cell demand.
+    """
+    graph, dev = model.graph, model.device
+    inputs = _inputs(batch, dev)
+    B = inputs["rgb_input_map"].shape[0]
+    # the spans name the stages in a torch.profiler trace (profile_recon.py)
+    with record_function("encode_image"):
+        out = graph.encode_image(inputs)
+    with record_function("latent_trunk"):
+        caches = graph.impl_network.encode(out["latent_depth"])
+
+    def decode_fn(pts):  # [B, T, 3] -> [B, T], one kernel launch a sample
+        return model.sharpen * torch.stack([
+            fused_decode(graph.impl_network, [(k[b : b + 1], v[b : b + 1]) for k, v in caches], pts[b],
+                         model.packed)
+            for b in range(B)
+        ])
+
+    S = vox_res + 1
+    with record_function("grid_decode"):
+        if hier:
+            # each pass is one decode call: the kernel takes any number of points
+            tile = resolve_hier_capacity(vox_res, capacity, FACTOR) * (FACTOR + 1) ** 3
+            level, n_active, ids, valid = occupancy_grid_hierarchical(
+                decode_fn, vox_res, rng, batch_size=B, factor=FACTOR, capacity=capacity, margin=MARGIN,
+                tile_points=tile, return_stats=True, return_cells=True, device=dev,
+            )
+        else:
+            grid = get_dense_3D_grid(vox_res, rng, device=dev)
+            level = occupancy_grid(decode_fn, grid, B, tile_points=grid.shape[0]).reshape(B, S, S, S)
+            n_active = None
+    with record_function("surface_sample"):
+        if hier:
+            pts = [sample_surface_points_cells(level[b], ids[b], valid[b], generator, num_points, factor=FACTOR)
+                   for b in range(B)]
+        else:
+            pts = [sample_surface_points(level[b], generator, num_points) for b in range(B)]
+        world = torch.stack(pts) / S * (rng[1] - rng[0]) + rng[0]
+    return out, level, world, n_active
+
+
 def reconstruct(
     model,
     batch,
@@ -158,35 +224,20 @@ def reconstruct(
     num_points=NUM_POINTS,
     rng=RANGE,
     return_level=False,
+    hier=True,
 ):
     """One image -> (world points [P, 3], depth_pred [1, H, W, 1], intr_pred [1, 3, 3], n_active [1]).
 
     ``batch`` holds NHWC ``rgb_input_map [1, H, W, 3]`` and
     ``mask_input_map [1, H, W, 1]`` (numpy or tensors). With
-    ``return_level`` the level grid ``[1, S, S, S]`` comes last.
+    ``return_level`` the level grid ``[1, S, S, S]`` comes last. ``hier``
+    picks the decode posture of :func:`reconstruct_batch`; the dense one
+    reports no ``n_active`` (None).
     """
-    graph, dev = model.graph, model.device
-    inputs = _inputs(batch, dev)
-    if inputs["rgb_input_map"].shape[0] != 1:
+    if batch["rgb_input_map"].shape[0] != 1:
         raise ValueError("reconstruct takes one image at a time")
-    # the spans name the stages in a torch.profiler trace (profile_recon.py)
-    with record_function("encode_image"):
-        out = graph.encode_image(inputs)
-    with record_function("latent_trunk"):
-        caches = graph.impl_network.encode(out["latent_depth"])
-
-    def decode_fn(pts):  # [1, T, 3] -> [1, T]
-        return model.sharpen * fused_decode(graph.impl_network, caches, pts[0], model.packed)[None]
-
-    # each pass is one decode call: the kernel takes any number of points
-    tile = resolve_hier_capacity(vox_res, capacity, FACTOR) * (FACTOR + 1) ** 3
-    with record_function("grid_decode"):
-        level, n_active, ids, valid = occupancy_grid_hierarchical(
-            decode_fn, vox_res, rng, batch_size=1, factor=FACTOR, capacity=capacity, margin=MARGIN,
-            tile_points=tile, return_stats=True, return_cells=True, device=dev,
-        )
-    with record_function("surface_sample"):
-        pts = sample_surface_points_cells(level[0], ids[0], valid[0], generator, num_points, factor=FACTOR)
-        world = pts / (vox_res + 1) * (rng[1] - rng[0]) + rng[0]
-    result = (world, out["depth_pred"], out["intr_pred"], n_active)
+    out, level, world, n_active = reconstruct_batch(
+        model, batch, generator, vox_res, capacity, num_points, rng, hier
+    )
+    result = (world[0], out["depth_pred"], out["intr_pred"], n_active)
     return result + (level,) if return_level else result
