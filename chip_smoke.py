@@ -9,19 +9,24 @@ Phases (one line or more each, any failure exits non-zero):
   2. build the kernels from csrc/ with nvcc, one process per source, all
      started together: the fused implicit decoder (K1) and the Chamfer
      kernels (K2, K3); ptxas's register and spill lines;
-  3. K1 against its plain version (``Implicit.decode`` in fp32) at full width
-     (C=256, 8 heads, 2 blocks, 9 linears, L=197) at the sizes the paths give
-     it: the 35,937 points of the coarse 33^3 lattice (a partial last tile),
-     the 512,000 points of a vox-128 fine pass and the 2,146,689 points of
-     the dense 129^3 grid; bf16 bounds of tests/test_implicit_kernel.py;
-     CUDA-event times of the kernel and the plain version at 512,000 points,
-     and the bound;
+  3. K1: the SASS counts of its tensor-core (HGMMA) and bulk-copy (UBLKCP)
+     instructions where cuobjdump exists; K1 against its plain version
+     (``Implicit.decode`` in fp32) at full width (C=256, 8 heads, 2 blocks,
+     9 linears, L=197) at the sizes the paths give it: the 35,937 points of
+     the coarse 33^3 lattice (a partial last tile), the 512,000 points of a
+     vox-128 fine pass and the 2,146,689 points of the dense 129^3 grid;
+     bf16 bounds of tests/test_implicit_kernel.py; rolled rows and a second
+     launch bit-equal; CUDA-event times at the three sizes, each with its
+     bound, TFLOP/s, share of the bound and the bytes it streams from L2
+     (counted from shapes); the plain version's time at 512,000 points;
   4. the main path: ``recon.synthetic_setup`` at full size (224^2, vox 128,
      capacity 4096, 10k points, sharpen 25) on a seeded synthetic masked
      image, the random field calibrated to a trained field's inside share
      and active-cell count (``recon.calibrate_random_field``); kernel launches counted over
      one reconstruction; a surface must exist; median seconds;
   5. marching-cubes mesh export of the level grid to a PLY file (not empty);
+     the dense sampler run twice on that grid with one seed: the draws must
+     be bit-equal (and whether torch.cumsum of its areas is, for the record);
   6. K2 (nearest neighbour + argmin, exact refinement) against its plain
      version at the exact brute-force stage's shape (B=48, N=M=10,000) and at
      a ragged one (B=3, N=1,000, M=777), on unit-scale clouds: refined
@@ -114,13 +119,52 @@ def agree(got, ref, what):
     return float(d.max())
 
 
+def sass_counts(lib):
+    """Counts of tensor-core and copy instructions in a built library's SASS
+    (``cuobjdump`` of the toolkit, else Triton's copy); None without one."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tools = [os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")]
+    try:
+        import triton
+
+        tools.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((t for t in tools if os.path.exists(t)), None)
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    words = [w.strip(";") for line in sass.splitlines() for w in line.split()]
+    count = {op: sum(w.startswith(op) for w in words)
+             for op in ("HGMMA", "HMMA", "UBLKCP", "UTMALDG", "SYNCS.ARRIVE.TRANS64", "SYNCS.PHASECHK")}
+    return tool, count
+
+
+def k1_bound(P, L, packed):
+    """(bound ms, bound_by, FLOP, bytes) of K1 on P points against L keys."""
+    flops = decoder_flops(P, L)
+    nbytes = P * 3 * 4 + P * 4 + 2 * 2 * 8 * L * 32 * 2
+    for v in packed.values():
+        for t in v if isinstance(v, list) else [v]:
+            nbytes += 0 if t is None else t.numel() * t.element_size()
+    by = "operations" if flops / H100_BF16_FLOPS > nbytes / H100_BYTES_PER_S else "bytes"
+    return max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3, by, flops, nbytes
+
+
 def check_k1(dev):
     """K1 vs its plain version at full width; returns the kernel's numbers."""
     from zeroshape_tpu_torch.metrics.eval3d import coarse_lattice, get_dense_3D_grid
     from zeroshape_tpu_torch.models.implicit import Implicit
+    from zeroshape_tpu_torch.ops import _build
     from zeroshape_tpu_torch.ops import implicit_kernel as ik
     from zeroshape_tpu_torch.weights import init_like_flax
 
+    found = sass_counts(_build.library_path(ik._NAME))
+    if found is None:
+        print("K1 SASS: no cuobjdump found")
+    else:
+        print(f"K1 SASS ({found[0]}): {found[1]}")
     g = torch.Generator().manual_seed(1)
     impl = init_like_flax(Implicit(num_patches=196, latent_dim=256), seed=1)
     with torch.no_grad():
@@ -155,7 +199,10 @@ def check_k1(dev):
         err = agree(got, ref, "random points")
         shift = 37
         rolled = ik.fused_decode(impl, caches, torch.roll(points, shift, 0), packed)
-        ms = cuda_ms(lambda: ik.fused_decode(impl, caches, points, packed))
+        again = ik.fused_decode(impl, caches, points, packed)
+        sizes = {"coarse lattice": coarse, "random points": points, "dense 129^3 grid": dense}
+        times = {what: cuda_ms(lambda x=x: ik.fused_decode(impl, caches, x, packed), iters=10 if len(x) <= P else 4)
+                 for what, x in sizes.items()}
         plain_ms = cuda_ms(lambda: impl.decode(caches, points[None]), warmup=1, iters=3)
         impl.dtype = torch.bfloat16
         ref_bf16 = impl.decode(caches, points[None])[0][0]
@@ -164,20 +211,23 @@ def check_k1(dev):
     print(f"K1 vs plain bf16 at P={P}: max|d| {d16:.3e}")
     if not torch.equal(rolled, torch.roll(got, shift, 0)):
         fail("K1 logits depend on the row a point lands in")
+    if not torch.equal(again, got):
+        fail("two K1 launches on the same points gave different logits")
+    print(f"K1 determinism at P={P}: rolled rows bit-equal, a second launch bit-equal")
 
     L = caches[0][0].shape[2]
-    flops = decoder_flops(P, L)
-    nbytes = P * 3 * 4 + P * 4 + 2 * 2 * 8 * L * 32 * 2
-    for v in packed.values():
-        for t in v if isinstance(v, list) else [v]:
-            nbytes += 0 if t is None else t.numel() * t.element_size()
-    bound_ms = max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
-    bound_by = "operations" if flops / H100_BF16_FLOPS > nbytes / H100_BYTES_PER_S else "bytes"
-    print(
-        f"K1 time at P={P}: kernel {ms:.3f} ms, plain fp32 {plain_ms:.3f} ms, plain bf16 "
-        f"{plain_bf16_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e12:.3f} TFLOP, "
-        f"{nbytes / 1e6:.2f} MB); {flops / ms / 1e9:.1f} TFLOP/s achieved"
-    )
+    for what, x in sizes.items():
+        n = len(x)
+        b_ms, b_by, flops, nbytes = k1_bound(n, L, packed)
+        ms = times[what]
+        print(f"K1 time on the {what}, P={n}: {ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}: {flops / 1e12:.3f} TFLOP, "
+              f"{nbytes / 1e6:.2f} MB), {flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the bound; "
+              f"L2 stream {ik.streamed_bytes(n) / 1e9:.3f} GB (counted from shapes: "
+              f"{-(-n // ik.TILE_POINTS)} tiles x {2 * (ik.STREAM_ELEMS + ik.CACHE_ELEMS)} bytes), "
+              f"{ik.streamed_bytes(n) / ms / 1e9:.2f} TB/s")
+    ms = times["random points"]
+    bound_ms, bound_by, flops, nbytes = k1_bound(P, L, packed)
+    print(f"K1 time at P={P}: kernel {ms:.3f} ms, plain fp32 {plain_ms:.3f} ms, plain bf16 {plain_bf16_ms:.3f} ms")
     return {
         "name": "implicit_decoder",
         "route": "cuda",
@@ -224,6 +274,28 @@ def main_path(dev):
     print(f"main path: median {np.median(times):.4f} s/reconstruction over {len(times)} reps "
           f"(min {min(times):.4f}, max {max(times):.4f})")
     return model, launches, level[0].float().cpu().numpy()
+
+
+def sampler_determinism(level, dev):
+    """Does the dense sampler repeat bit for bit? Two draws on one level grid
+    with the same generator seed, and the area CDF they rest on computed
+    twice; returns the finding as a short string."""
+    from zeroshape_tpu_torch.ops.marching_cubes import fixed_order_cumsum, sample_surface_points, triangle_areas
+
+    lv = torch.as_tensor(level, device=dev)
+    with torch.inference_mode():
+        areas = triangle_areas(lv)
+        library = [torch.cumsum(areas, dim=0) for _ in range(2)]  # what the sampler used to sum with
+        fixed = [fixed_order_cumsum(areas) for _ in range(2)]
+        draws = [sample_surface_points(lv, torch.Generator(device=dev).manual_seed(0)) for _ in range(2)]
+    gap = float((library[0] - library[1]).abs().max())
+    finding = (f"torch.cumsum of the {areas.numel()} slot areas bit-equal twice: {torch.equal(*library)} "
+               f"(max |d| {gap:.3e}); fixed_order_cumsum bit-equal twice: {torch.equal(*fixed)}; "
+               f"10,000 draws bit-equal twice: {torch.equal(*draws)}")
+    print(f"dense sampler determinism on the main path's {tuple(lv.shape)} level grid: {finding}")
+    if not (torch.equal(*fixed) and torch.equal(*draws)):
+        fail("the dense sampler's CDF or draws differ between two runs with one seed")
+    return finding
 
 
 def build_kernels():
@@ -395,7 +467,7 @@ def evaluate_posture(model, samples, training):
     k = len(samples)
     want = {"K1": k, "K2": 288 * k, "K3": 0} if not training else {"K1": 2 * k, "K2": 6 * k, "K3": 72 * k}
     print(f"evaluation, {name} posture ({'coarse-to-fine decode, pruned' if training else 'dense decode, exhaustive'} "
-          f"search), {k} samples at batch 2: CD {res['val_metric']:.4f}, launches {n} (expected {want}); "
+          f"search), {k} samples at batch 2: CD {res['val_metric']:.6f}, launches {n} (expected {want}); "
           f"{seconds / k:.3f} s/sample over the run, per batch {[round(x, 4) for x in res['s_per_sample']]}")
     if n != want:
         fail(f"{name} posture launched {n}, expected {want}")
@@ -453,6 +525,7 @@ def main():
     if len(faces) == 0 or not np.isfinite(verts).all():
         fail("mesh empty or its vertices not finite")
     print(f"mesh: {len(verts)} vertices, {len(faces)} faces, {size} bytes of PLY")
+    sampler_determinism(level, dev)
 
     with torch.inference_mode():
         exact = unit_clouds(48, 10000, 10000, seed=5)  # one exact brute-force batch

@@ -154,3 +154,13 @@ def test_marching_cubes_mesh_matches_jax(blob_level, tmp_path):
 
     vis.write_ply_mesh(tmp_path / "ref.ply", jv, jf)
     assert path.read_bytes() == (tmp_path / "ref.ply").read_bytes()
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3 * 4096 * 4096 // 7])
+def test_fixed_order_cumsum_is_the_float64_cumsum(n):
+    """The samplers' CDF: the float64 prefix sum rounded once to float32,
+    for lengths on either side of the 4096-entry rows and past 4096 rows."""
+    x = np.random.default_rng(n).random(n).astype(np.float32)
+    got = tmc.fixed_order_cumsum(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.cumsum(x.astype(np.float64)).astype(np.float32))

@@ -21,28 +21,83 @@ def _bf(x):
     return x.to(torch.bfloat16).float()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n_points", [1, 4999])
-def test_kernel_matches_plain_decode(n_points):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    g = torch.Generator().manual_seed(2)
-    impl = init_like_flax(Implicit(num_patches=196, latent_dim=256), seed=2)
+def _decoder(seed, n_latent=197):
+    """A full-width decoder with bf16-valued weights (the kernel's operands),
+    its packing and bf16-valued caches, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    impl = init_like_flax(Implicit(num_patches=n_latent - 1, latent_dim=256), seed=seed)
     with torch.no_grad():
         impl.point_proj.proj.weight.mul_(8.0)
-        for prm in impl.parameters():  # the kernel's operands are bf16-valued
+        for prm in impl.parameters():
             prm.copy_(_bf(prm))
     impl = impl.cuda().eval()
     with torch.no_grad():
-        latent = torch.randn(1, 197, 256, generator=g).cuda()
+        latent = torch.randn(1, n_latent, 256, generator=g).cuda()
         caches = [(_bf(k), _bf(v)) for k, v in impl.encode(latent)]
+    return impl, caches, ik.pack_decoder_params(impl), g
+
+
+# 127, 128, 129 points straddle the kernel's 128-point tile; 4,999 ends in a ragged one
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_points", [1, 127, 128, 129, 4999])
+def test_kernel_matches_plain_decode(n_points):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    impl, caches, packed, g = _decoder(2)
+    with torch.no_grad():
         pts = (torch.rand(n_points, 3, generator=g) * 3 - 1.5).cuda()
-        got = ik.fused_decode(impl, caches, pts, ik.pack_decoder_params(impl)).cpu().numpy()
+        got = ik.fused_decode(impl, caches, pts, packed).cpu().numpy()
         want = impl.decode(caches, pts[None])[0][0].cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=8e-2, atol=2e-2)
     if n_points > 1:
         assert np.corrcoef(got, want)[0, 1] > 0.9999
         assert np.abs(got - want).mean() < 5e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_latent", [1, 17, 50])
+def test_kernel_matches_plain_decode_at_other_latent_counts(n_latent):
+    """The score mask holds for other L than 197 (a square patch grid + 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    impl, caches, packed, g = _decoder(3, n_latent)
+    with torch.no_grad():
+        pts = (torch.rand(1000, 3, generator=g) * 3 - 1.5).cuda()
+        got = ik.fused_decode(impl, caches, pts, packed).cpu().numpy()
+        want = impl.decode(caches, pts[None])[0][0].cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=8e-2, atol=2e-2)
+    assert np.abs(got - want).mean() < 5e-3
+
+
+@pytest.mark.gpu
+def test_kernel_is_deterministic_and_row_independent():
+    """Two launches on the same points give bit-equal logits, and a point's
+    logit does not depend on the tile or row it lands in."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    impl, caches, packed, g = _decoder(4)
+    with torch.no_grad():
+        pts = (torch.rand(70_000, 3, generator=g) * 3 - 1.5).cuda()
+        first = ik.fused_decode(impl, caches, pts, packed)
+        second = ik.fused_decode(impl, caches, pts, packed)
+        rolled = ik.fused_decode(impl, caches, torch.roll(pts, 37, 0), packed)
+    assert torch.equal(first, second)
+    assert torch.equal(rolled, torch.roll(first, 37, 0))
+
+
+@pytest.mark.gpu
+def test_dense_sampler_repeats_on_the_card():
+    """One seed draws the same surface points twice: the area CDF is summed
+    in a fixed order (torch.cumsum of a 1-D CUDA tensor is not)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from zeroshape_tpu_torch.ops.marching_cubes import sample_surface_points
+
+    g = torch.linspace(-1.5, 1.5, 129, device="cuda")
+    X, Y, Z = torch.meshgrid(g, g, g, indexing="ij")
+    level = torch.sigmoid(8 * (0.9 - torch.sqrt(X**2 + 2 * Y**2 + (Z - 0.2) ** 2)))
+    draws = [sample_surface_points(level, torch.Generator(device="cuda").manual_seed(0)) for _ in range(2)]
+    assert torch.equal(*draws)
 
 
 @pytest.mark.gpu

@@ -9,6 +9,8 @@ compared on the card (tests/test_torch_port_gpu.py and chip_smoke.py).
 """
 
 import math
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -139,9 +141,10 @@ def _bf(x):
 
 def emulate_kernel(packed, caches, pts, heads=8, hd=32):
     """The kernel's arithmetic on its packed operands, in PyTorch: bf16 matrix
-    operands with fp32 accumulation, fp32 LayerNorm / softmax / residual."""
-    k, v, L = ik.pack_caches(caches)
-    k, v = k.float()[:, :, :L], v.float()[:, :, :L]
+    operands with fp32 accumulation, fp32 LayerNorm / softmax / residual.
+    The operands are read back from the packed tile layouts."""
+    k, v = (x.float() for x in ik.unpack_caches(*ik.pack_caches(caches)))
+    packed = ik.unpack_decoder_params(packed)
 
     def w(name, *idx):
         x = packed[name]
@@ -185,16 +188,70 @@ def emulate_kernel(packed, caches, pts, heads=8, hd=32):
     return h[:, 0]
 
 
-def test_packed_layout_matches_plain_decode_at_full_width():
-    """Full width (C=256, 8 heads, L=197): the packed per-head qkv columns,
-    the [state | trunk] skip rows and the separate point rows reproduce the
-    plain decode within the kernel's bf16 bounds."""
+def _full_width_decoder():
     g = torch.Generator().manual_seed(1)
     impl = W.init_like_flax(Implicit(num_patches=196, latent_dim=256), seed=1).eval()
     with torch.no_grad():
         for name, prm in impl.named_parameters():
             if name.endswith("bias"):
                 prm.add_(0.05 * torch.randn(prm.shape, generator=g))
+    return impl, g
+
+
+def test_packed_layout_round_trips_exactly_at_full_width():
+    """pack -> unpack gives back every [in, out] matrix of the decoder bit for
+    bit, built here from the module without the packer's helpers."""
+    impl, g = _full_width_decoder()
+    got = ik.unpack_decoder_params(ik.pack_decoder_params(impl))
+    packed = ik.pack_decoder_params(impl)
+    assert packed["stream"].dtype == torch.bfloat16 and packed["stream"].numel() * 2 == 4_587_520
+
+    def want(lin):
+        return lin.weight.detach().t().to(torch.bfloat16)
+
+    for blk, b in enumerate(impl.blocks_attn):
+        qkv = want(b.attn.qkv)
+        for h in range(8):
+            cols = [qkv[:, j * 256 + h * 32 : j * 256 + (h + 1) * 32] for j in range(3)]
+            assert torch.equal(got["qkv_w"][blk, h], torch.cat(cols, 1))
+        assert torch.equal(got["proj_w"][blk], want(b.attn.proj))
+        assert torch.equal(got["fc1_w"][blk], want(b.mlp.fc1))
+        assert torch.equal(got["fc2_w"][blk], want(b.mlp.fc2))
+    for l, lin in enumerate(impl.impl_mlp.layers):
+        w = want(lin)
+        main = {0: w[3:], 8: w[:, 0]}.get(l, torch.cat([w[:256], w[259:]]) if l in (2, 4, 6) else w)
+        assert torch.equal(got["mlp_w"][l], main)
+    # the latent caches' tiles round-trip too, at L = 197 and at the most the kernel takes
+    for L in (197, ik.MAX_LATENT):
+        caches = [tuple(torch.randn(1, 8, L, 32, generator=g) for _ in range(2)) for _ in range(2)]
+        flat, n = ik.pack_caches(caches)
+        assert n == L and flat.numel() == 2 * 8 * 32 * (ik.MAX_LATENT + ik.V_KEYS)
+        k, v = ik.unpack_caches(flat, L)
+        for blk, (kk, vv) in enumerate(caches):
+            assert torch.equal(k[blk], kk[0].to(torch.bfloat16))
+            assert torch.equal(v[blk], vv[0].to(torch.bfloat16))
+
+
+def test_kmajor_layout_is_the_swizzled_tile_layout():
+    """Element (k, n) of a packed [K, N] matrix sits where the kernel's
+    64-byte-swizzle wgmma descriptors read it: chunk k // 32, row n, 16-byte
+    unit ((k % 32) // 8) ^ ((n // 2) % 4), element k % 8."""
+    K, N = 64, 24
+    w = torch.arange(K * N, dtype=torch.float32).reshape(K, N)
+    flat = ik._kmajor(w)
+    for k in range(K):
+        for n in range(N):
+            unit = ((k % 32) // 8) ^ ((n // 2) % 4)
+            assert flat[(k // 32) * N * 32 + n * 32 + unit * 8 + k % 8] == w[k, n]
+
+
+def test_packed_layout_matches_plain_decode_at_full_width():
+    """Full width (C=256, 8 heads, L=197): the packed per-head qkv columns,
+    the [state | trunk] skip rows and the separate point rows reproduce the
+    plain decode within the kernel's bf16 bounds, read back from the packed
+    tile layouts."""
+    impl, g = _full_width_decoder()
+    with torch.no_grad():
         impl.point_proj.proj.weight.mul_(8.0)
         for prm in impl.parameters():  # the kernel's operands are bf16-valued
             prm.copy_(_bf(prm))
@@ -204,3 +261,17 @@ def test_packed_layout_matches_plain_decode_at_full_width():
         want = impl.decode(caches, pts[None])[0][0]
         got = emulate_kernel(ik.pack_decoder_params(impl), caches, pts)
     _bf16_bounds(got, want)
+
+
+def test_ctypes_struct_and_constants_match_the_kernel_source():
+    """The wrapper's ctypes mirror of ``struct DecoderParams`` and the layout
+    constants the packer shares with the CUDA source agree with that source
+    (which cannot be compiled here)."""
+    src = open(os.path.join(os.path.dirname(ik.__file__), "..", "csrc", "implicit_decoder.cu")).read()
+    body = src[src.index("struct DecoderParams {") : src.index("};", src.index("struct DecoderParams {"))]
+    fields = re.findall(r"\*\s*(\w+)(?:\[NLIN\])?;", body)
+    assert fields == [name for name, _ in ik._DecoderParams._fields_]
+    const = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(const["MAX_LP"]) == ik.MAX_LATENT and int(const["V_KEYS"]) == ik.V_KEYS
+    assert int(const["FC_CHUNK"]) == ik.FC_CHUNK and int(const["C"]) == ik.C and int(const["HID"]) == ik.HIDDEN
+    assert int(const["ROWS"]) * int(const["NCONS"]) == ik.TILE_POINTS

@@ -23,12 +23,13 @@ def library_path(name):
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
-def build(source, name):
+def build(source, name, flags=()):
     """Compile ``csrc/<source>`` into ``lib<name>.so`` if it is missing or stale.
 
-    Returns ``(seconds spent building, compiler output)``; 0 and "" when the
-    library was already current. The output holds ``ptxas``'s register and
-    spill report (``-Xptxas -v``). Raises ``RuntimeError`` if ``nvcc`` fails.
+    ``flags`` are extra ``nvcc`` arguments (a ``-D`` for a variant). Returns
+    ``(seconds spent building, compiler output)``; 0 and "" when the library
+    was already current. The output holds ``ptxas``'s register and spill
+    report (``-Xptxas -v``). Raises ``RuntimeError`` if ``nvcc`` fails.
     """
     src, lib = os.path.join(CSRC, source), library_path(name)
     if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
@@ -40,7 +41,7 @@ def build(source, name):
     tmp = f"{lib}.{os.getpid()}.tmp"
     cmd = [
         nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src,
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags, "-o", tmp, src,
     ]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -52,15 +53,15 @@ def build(source, name):
     return seconds, log
 
 
-def library(source, name, signatures):
-    """The loaded ``lib<name>.so``, built first if needed.
+def library(source, name, signatures, flags=()):
+    """The loaded ``lib<name>.so``, built first (with ``flags``) if needed.
 
     ``signatures`` maps each C entry point to its ctypes ``argtypes``; every
     entry point returns an ``int`` (its ``cudaError_t``).
     """
     lib = _LOADED.get(name)
     if lib is None:
-        build(source, name)
+        build(source, name, flags)
         lib = ctypes.CDLL(library_path(name))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes

@@ -23,7 +23,9 @@ _SOURCE, _NAME = "implicit_decoder.cu", "zs_implicit_decoder"
 # the shapes the kernel is compiled for (the shipped decoder)
 C, N_HEADS, HEAD_DIM, N_BLOCKS, HIDDEN, N_LINEARS = 256, 8, 32, 2, 1024, 9
 SKIP_IN = (2, 4, 6)
-MAX_LATENT = 208  # padded latent rows the kernel's shared-memory layout fits
+MAX_LATENT = 208  # latent keys the kernel's score product covers (its N)
+V_KEYS = 224  # latent rows of a packed V tile (7 chunks of 32)
+FC_CHUNK = 64  # hidden columns of one fc1 / fc2 product pair
 
 
 def _check_module(impl):
@@ -46,18 +48,64 @@ def _check_module(impl):
         )
 
 
-def pack_decoder_params(impl) -> dict:
-    """Stack the decoder's weights into the kernel's layout (on its device).
+def _swizzle(x):
+    """Move the four 16-byte units of each 64-byte row n of ``x [..., N, 4,
+    8]`` to unit ``u ^ ((n // 2) % 4)``, the 64-byte swizzle of the wgmma
+    descriptors; it is its own inverse."""
+    N = x.shape[-3]
+    idx = torch.arange(4, device=x.device) ^ ((torch.arange(N, device=x.device) >> 1) & 3)[:, None]
+    return torch.gather(x, -2, idx[..., None].expand(x.shape))
 
-    Matrices go to bf16 as ``[in, out]``; biases and LayerNorms stay fp32.
+
+def _kmajor(w):
+    """``w [..., K, N]`` -> flat ``[..., K * N]`` in the kernel's shared-memory
+    layout: 32-deep K chunks, each N rows of 32 values (64 bytes), swizzled.
+    A tile of kt rows of K is kt / 32 consecutive chunks."""
+    *b, K, N = w.shape
+    return _swizzle(w.transpose(-1, -2).reshape(*b, N, K // 32, 4, 8).transpose(-3, -4)).reshape(*b, -1)
+
+
+def _unkmajor(flat, K, N):
+    """Inverse of :func:`_kmajor` for one ``[K, N]`` matrix."""
+    return _swizzle(flat.reshape(K // 32, N, 4, 8)).transpose(0, 1).reshape(N, K).t()
+
+
+def _stream_plan():
+    """The weight stream's matrices in the kernel's read order: ``(name,
+    block or layer, index, K, N)``; ``index`` is the head pair (qkv) or the
+    64-column hidden chunk (fc1, fc2)."""
+    plan = []
+    for blk in range(N_BLOCKS):
+        plan += [("qkv_w", blk, hp, C, 6 * HEAD_DIM) for hp in range(N_HEADS // 2)]
+        plan.append(("proj_w", blk, None, C, C))
+        for ch in range(HIDDEN // FC_CHUNK):
+            plan += [("fc1_w", blk, ch, C, FC_CHUNK), ("fc2_w", blk, ch, FC_CHUNK, C)]
+    plan += [("mlp_w", l, None, 2 * C if l in SKIP_IN else C, C) for l in range(N_LINEARS - 1)]
+    return plan
+
+
+STREAM_ELEMS = sum(K * N for *_, K, N in _stream_plan())  # 2,293,760 bf16 = 4,587,520 bytes
+CACHE_ELEMS = N_BLOCKS * N_HEADS * HEAD_DIM * (MAX_LATENT + V_KEYS)  # 221,184 bf16 = 442,368 bytes
+TILE_POINTS = 128  # points a block decodes per pass over the weight stream
+
+
+def streamed_bytes(P):
+    """Bytes one launch on P points streams from L2 into shared memory: every
+    128-point tile reads all weight and cache tiles once. A count from
+    shapes, not a measurement."""
+    return -(-P // TILE_POINTS) * 2 * (STREAM_ELEMS + CACHE_ELEMS)
+
+
+def _matrices(impl):
+    """The decoder's bf16 ``[in, out]`` matrices and fp32 vectors, as
+    :func:`unpack_decoder_params` returns them.
+
     qkv columns are regrouped per head into ``[q_h | k_h | v_h]``. Skip
     layers take the reference concat order ``[state | pts | trunk]``
     (``implicit.py:143-145``); their point rows move to a separate ``[3, C]``
     array and the rest keep ``[state | trunk]`` (cf. the reorder at
-    ``implicit_kernel.py:433-441``).
+    ``implicit_kernel.py:433-441``). The last linear is a ``[C]`` vector.
     """
-    _check_module(impl)
-
     def wt(lin):  # torch [out, in] -> [in, out]
         return lin.weight.detach().t().float()
 
@@ -71,21 +119,16 @@ def pack_decoder_params(impl) -> dict:
         return torch.stack([norm.weight.detach(), norm.bias.detach()])
 
     blocks = impl.blocks_attn
-    qkv_w, qkv_b = [], []
-    for blk in blocks:
-        w, b = wt(blk.attn.qkv), blk.attn.qkv.bias.detach()
-        cols = [
-            torch.cat([torch.arange(j * C + h * HEAD_DIM, j * C + (h + 1) * HEAD_DIM) for j in range(3)])
-            for h in range(N_HEADS)
-        ]
-        qkv_w.append(torch.stack([w[:, c] for c in cols]))  # [H, C, 96]
-        qkv_b.append(torch.stack([b[c] for c in cols]))  # [H, 96]
-    packed = {
+    head_cols = [
+        torch.cat([torch.arange(j * C + h * HEAD_DIM, j * C + (h + 1) * HEAD_DIM) for j in range(3)])
+        for h in range(N_HEADS)
+    ]
+    m = {
         "point_w": bf(wt(impl.point_proj.proj)),
         "point_b": f32(impl.point_proj.proj.bias),
         "ln1": f32(torch.stack([ln(b.norm1) for b in blocks])),
-        "qkv_w": bf(torch.stack(qkv_w)),
-        "qkv_b": f32(torch.stack(qkv_b)),
+        "qkv_w": bf(torch.stack([torch.stack([wt(b.attn.qkv)[:, c] for c in head_cols]) for b in blocks])),
+        "qkv_b": f32(torch.stack([torch.stack([b.attn.qkv.bias[c] for c in head_cols]) for b in blocks])),
         "proj_w": bf(torch.stack([wt(b.attn.proj) for b in blocks])),
         "proj_b": f32(torch.stack([b.attn.proj.bias for b in blocks])),
         "ln2": f32(torch.stack([ln(b.norm2) for b in blocks])),
@@ -108,23 +151,95 @@ def pack_decoder_params(impl) -> dict:
             main, pts_rows = w, None
         if l == N_LINEARS - 1:
             main = main[:, 0]
-        packed["mlp_w"].append(bf(main))
-        packed["mlp_wp"].append(None if pts_rows is None else bf(pts_rows))
-        packed["mlp_b"].append(f32(lin.bias))
+        m["mlp_w"].append(bf(main))
+        m["mlp_wp"].append(None if pts_rows is None else bf(pts_rows))
+        m["mlp_b"].append(f32(lin.bias))
+    return m
+
+
+def _plan_matrix(m, name, i, j):
+    """The ``[K, N]`` matrix of one entry of :func:`_stream_plan`."""
+    if name == "qkv_w":
+        return torch.cat([m["qkv_w"][i, 2 * j], m["qkv_w"][i, 2 * j + 1]], 1)
+    if name == "fc1_w":
+        return m["fc1_w"][i][:, j * FC_CHUNK : (j + 1) * FC_CHUNK]
+    if name == "fc2_w":
+        return m["fc2_w"][i][j * FC_CHUNK : (j + 1) * FC_CHUNK]
+    return m[name][i]
+
+
+def pack_decoder_params(impl) -> dict:
+    """The decoder's weights in the kernel's layout (on its device).
+
+    Every matrix the kernel multiplies by goes, in bf16 and in the order the
+    kernel reads it (:func:`_stream_plan`), into one flat ``"stream"``: the
+    qkv columns of a head pair, proj, then fc1 and fc2 in 64-column chunks of
+    the hidden layer, for each block; then the 8 hidden skip-MLP linears.
+    Each matrix is laid out as :func:`_kmajor` says, so that the kernel copies
+    it tile by tile into shared memory as it is. Biases, LayerNorms, the
+    point rows of the skip MLP and the width-1 last linear (``"out_w"``) stay
+    apart, fp32 or bf16 as :func:`_matrices` gives them.
+    """
+    _check_module(impl)
+    m = _matrices(impl)
+    stream = torch.cat([_kmajor(_plan_matrix(m, name, i, j)) for name, i, j, _, _ in _stream_plan()])
+    packed = {k: v for k, v in m.items() if k not in ("qkv_w", "proj_w", "fc1_w", "fc2_w", "mlp_w")}
+    packed["stream"] = stream
+    packed["out_w"] = m["mlp_w"][N_LINEARS - 1]
     return packed
 
 
+def unpack_decoder_params(packed) -> dict:
+    """Inverse of the layout of :func:`pack_decoder_params`: the bf16 ``[in,
+    out]`` matrices of :func:`_matrices` (bit for bit) and the rest as
+    packed."""
+    m = {k: v for k, v in packed.items() if k not in ("stream", "out_w")}
+    dev = packed["stream"].device
+    bf = torch.bfloat16
+    m["qkv_w"] = torch.empty(N_BLOCKS, N_HEADS, C, 3 * HEAD_DIM, dtype=bf, device=dev)
+    m["proj_w"] = torch.empty(N_BLOCKS, C, C, dtype=bf, device=dev)
+    m["fc1_w"] = torch.empty(N_BLOCKS, C, HIDDEN, dtype=bf, device=dev)
+    m["fc2_w"] = torch.empty(N_BLOCKS, HIDDEN, C, dtype=bf, device=dev)
+    m["mlp_w"] = [None] * N_LINEARS
+    at = 0
+    for name, i, j, K, N in _stream_plan():
+        w = _unkmajor(packed["stream"][at : at + K * N], K, N)
+        at += K * N
+        if name == "mlp_w":
+            m["mlp_w"][i] = w.contiguous()
+        elif name == "qkv_w":
+            m["qkv_w"][i, 2 * j].copy_(w[:, : 3 * HEAD_DIM])
+            m["qkv_w"][i, 2 * j + 1].copy_(w[:, 3 * HEAD_DIM :])
+        else:
+            _plan_matrix(m, name, i, j).copy_(w)
+    m["mlp_w"][N_LINEARS - 1] = packed["out_w"]
+    return m
+
+
 def pack_caches(caches):
-    """Per-block (k, v) ``[1, H, L, hd]`` -> bf16 ``[NB, H, Lp, hd]`` K and V,
-    zero-padded to ``Lp`` (a multiple of 16) latent rows, and ``L``."""
+    """Per-block (k, v) ``[1, H, L, hd]`` -> the kernel's flat bf16 cache
+    tiles and ``L``. For each block and head: K^T (``[hd, 208]``, the B of
+    the scores, latent rows zero-padded to ``MAX_LATENT``) then V (``[224,
+    hd]``, the B of P @ V, zero-padded to 7 chunks of 32 rows), each laid out
+    by :func:`_kmajor`."""
     L = caches[0][0].shape[2]
-    Lp = -(-L // 16) * 16
+    if L > MAX_LATENT:
+        raise ValueError(f"at most {MAX_LATENT} latent tokens, got {L}")
+    k = torch.stack([c[0][0] for c in caches]).to(torch.bfloat16)  # [NB, H, L, hd]
+    v = torch.stack([c[1][0] for c in caches]).to(torch.bfloat16)
+    k = torch.nn.functional.pad(k, (0, 0, 0, MAX_LATENT - L))
+    v = torch.nn.functional.pad(v, (0, 0, 0, V_KEYS - L))
+    return torch.cat([_kmajor(k.transpose(-1, -2)), _kmajor(v)], -1).reshape(-1), L
 
-    def stack(i):
-        x = torch.stack([c[i][0] for c in caches]).to(torch.bfloat16)
-        return torch.nn.functional.pad(x, (0, 0, 0, Lp - L)).contiguous()
 
-    return stack(0), stack(1), L
+def unpack_caches(flat, L):
+    """Inverse of :func:`pack_caches`: bf16 K and V ``[NB, H, L, hd]``."""
+    tiles = flat.reshape(N_BLOCKS * N_HEADS, -1)
+    nk = HEAD_DIM * MAX_LATENT
+    k = torch.stack([_unkmajor(x[:nk], HEAD_DIM, MAX_LATENT).t()[:L] for x in tiles])
+    v = torch.stack([_unkmajor(x[nk:], V_KEYS, HEAD_DIM)[:L] for x in tiles])
+    shape = (N_BLOCKS, N_HEADS, L, HEAD_DIM)
+    return k.reshape(shape), v.reshape(shape)
 
 
 class _DecoderParams(ctypes.Structure):
@@ -133,10 +248,10 @@ class _DecoderParams(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_void_p)
         for name in (
-            "point_w", "point_b", "ln1", "qkv_w", "qkv_b", "proj_w", "proj_b", "ln2",
-            "fc1_w", "fc1_b", "fc2_w", "fc2_b", "lnf", "k_cache", "v_cache",
+            "stream", "caches", "point_w", "point_b", "ln1", "qkv_b", "proj_b", "ln2",
+            "fc1_b", "fc2_b", "lnf", "out_w",
         )
-    ] + [(name, ctypes.c_void_p * N_LINEARS) for name in ("mlp_w", "mlp_wp", "mlp_b")]
+    ] + [(name, ctypes.c_void_p * N_LINEARS) for name in ("mlp_wp", "mlp_b")]
 
 
 def build():
@@ -148,13 +263,16 @@ def build():
     return _build.build(_SOURCE, _NAME)
 
 
+_SIGNATURES = {
+    "zs_implicit_decode": [
+        ctypes.POINTER(_DecoderParams), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ],
+}
+
+
 def _library():
-    return _build.library(_SOURCE, _NAME, {
-        "zs_implicit_decode": [
-            ctypes.POINTER(_DecoderParams), ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ],
-    })
+    return _build.library(_SOURCE, _NAME, _SIGNATURES)
 
 
 def _ptr(t, dtype, shape, device):
@@ -162,6 +280,10 @@ def _ptr(t, dtype, shape, device):
         raise ValueError(f"kernel operand must be contiguous {dtype} {tuple(shape)} on {device}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     return t.data_ptr()
+
+
+# fp32 per consumer warpgroup of a block: its parked [64, 256] residual
+PARK_FLOATS = 2 * 64 * C
 
 
 def fused_decode(impl, caches, points, packed=None):
@@ -183,49 +305,51 @@ def fused_decode(impl, caches, points, packed=None):
         raise ValueError(f"points must be [P, 3], got {tuple(points.shape)}")
     if len(caches) != N_BLOCKS or tuple(caches[0][0].shape[:2]) != (1, N_HEADS) or caches[0][0].shape[3] != HEAD_DIM:
         raise ValueError("caches must be 2 blocks of (k, v) [1, 8, L, 32]")
-    k, v, L = pack_caches(caches)
-    Lp = k.shape[2]
-    if L > MAX_LATENT:
-        raise ValueError(f"at most {MAX_LATENT} latent tokens, got {L}")
     out = torch.empty(P, device=dev, dtype=torch.float32)
     if P == 0:
         return out
 
-    bf, f32 = torch.bfloat16, torch.float32
-    prm = _DecoderParams()
-    prm.point_w = _ptr(packed["point_w"], bf, (3, C), dev)
-    prm.point_b = _ptr(packed["point_b"], f32, (C,), dev)
-    prm.ln1 = _ptr(packed["ln1"], f32, (N_BLOCKS, 2, C), dev)
-    prm.qkv_w = _ptr(packed["qkv_w"], bf, (N_BLOCKS, N_HEADS, C, 3 * HEAD_DIM), dev)
-    prm.qkv_b = _ptr(packed["qkv_b"], f32, (N_BLOCKS, N_HEADS, 3 * HEAD_DIM), dev)
-    prm.proj_w = _ptr(packed["proj_w"], bf, (N_BLOCKS, C, C), dev)
-    prm.proj_b = _ptr(packed["proj_b"], f32, (N_BLOCKS, C), dev)
-    prm.ln2 = _ptr(packed["ln2"], f32, (N_BLOCKS, 2, C), dev)
-    prm.fc1_w = _ptr(packed["fc1_w"], bf, (N_BLOCKS, C, HIDDEN), dev)
-    prm.fc1_b = _ptr(packed["fc1_b"], f32, (N_BLOCKS, HIDDEN), dev)
-    prm.fc2_w = _ptr(packed["fc2_w"], bf, (N_BLOCKS, HIDDEN, C), dev)
-    prm.fc2_b = _ptr(packed["fc2_b"], f32, (N_BLOCKS, C), dev)
-    prm.lnf = _ptr(packed["lnf"], f32, (2, C), dev)
-    prm.k_cache = _ptr(k, bf, (N_BLOCKS, N_HEADS, Lp, HEAD_DIM), dev)
-    prm.v_cache = _ptr(v, bf, (N_BLOCKS, N_HEADS, Lp, HEAD_DIM), dev)
-    for l in range(N_LINEARS):
-        rows = 2 * C if l in SKIP_IN else C
-        shape = (C,) if l == N_LINEARS - 1 else (rows, C)
-        prm.mlp_w[l] = _ptr(packed["mlp_w"][l], bf, shape, dev)
-        wp = packed["mlp_wp"][l]
-        prm.mlp_wp[l] = None if wp is None else _ptr(wp, bf, (3, C), dev)
-        prm.mlp_b[l] = _ptr(packed["mlp_b"][l], f32, (1,) if l == N_LINEARS - 1 else (C,), dev)
-    pts = points.contiguous()
-    _ptr(pts, f32, (P, 3), dev)
-
-    err = _library().zs_implicit_decode(
-        ctypes.byref(prm), pts.data_ptr(), out.data_ptr(), P, L, Lp,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"implicit decoder kernel launch failed: cudaError_t {err}")
+    launch(_library(), caches, points, packed, out)
     fused_decode.launches += 1
     return out
 
 
 fused_decode.launches = 0
+
+
+def launch(lib, caches, points, packed, out):
+    """Launch ``lib``'s ``zs_implicit_decode`` (the kernel, or a variant of it
+    built with other flags) on CUDA operands; raises on a refused launch."""
+    dev = points.device
+    P = points.shape[0]
+    kv, L = pack_caches(caches)
+    bf, f32 = torch.bfloat16, torch.float32
+    prm = _DecoderParams()
+    prm.stream = _ptr(packed["stream"], bf, (STREAM_ELEMS,), dev)
+    prm.caches = _ptr(kv, bf, (CACHE_ELEMS,), dev)
+    prm.point_w = _ptr(packed["point_w"], bf, (3, C), dev)
+    prm.point_b = _ptr(packed["point_b"], f32, (C,), dev)
+    prm.ln1 = _ptr(packed["ln1"], f32, (N_BLOCKS, 2, C), dev)
+    prm.qkv_b = _ptr(packed["qkv_b"], f32, (N_BLOCKS, N_HEADS, 3 * HEAD_DIM), dev)
+    prm.proj_b = _ptr(packed["proj_b"], f32, (N_BLOCKS, C), dev)
+    prm.ln2 = _ptr(packed["ln2"], f32, (N_BLOCKS, 2, C), dev)
+    prm.fc1_b = _ptr(packed["fc1_b"], f32, (N_BLOCKS, HIDDEN), dev)
+    prm.fc2_b = _ptr(packed["fc2_b"], f32, (N_BLOCKS, C), dev)
+    prm.lnf = _ptr(packed["lnf"], f32, (2, C), dev)
+    prm.out_w = _ptr(packed["out_w"], bf, (C,), dev)
+    for l in range(N_LINEARS):
+        wp = packed["mlp_wp"][l]
+        prm.mlp_wp[l] = None if wp is None else _ptr(wp, bf, (3, C), dev)
+        prm.mlp_b[l] = _ptr(packed["mlp_b"][l], f32, (1,) if l == N_LINEARS - 1 else (C,), dev)
+    pts = points.contiguous()
+    _ptr(pts, f32, (P, 3), dev)
+    # one parking slot per block of the persistent grid (at most one block an SM)
+    n_slots = torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = torch.empty(n_slots * PARK_FLOATS, device=dev, dtype=f32)
+
+    err = lib.zs_implicit_decode(
+        ctypes.byref(prm), pts.data_ptr(), out.data_ptr(), P, L, scratch.data_ptr(), n_slots,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"implicit decoder kernel launch failed: cudaError_t {err}")

@@ -97,6 +97,28 @@ def triangle_areas(level, isoval=0.5, slab=8):
     return torch.cat(areas)
 
 
+_SCAN_ROW = 4096
+
+
+def fixed_order_cumsum(x):
+    """Inclusive cumsum of the 1-D ``x``, summed in float64 in an order that
+    depends only on ``len(x)``, returned in ``x``'s dtype.
+
+    On the card ``torch.cumsum`` of a 1-D tensor is a look-back scan whose
+    float sums change from run to run, so one seed drew other surface points
+    in two runs; a scan along the rows of a 2-D tensor has a fixed order.
+    Rows of 4096 entries are scanned, then their totals, recursively (two
+    rows at least: a single row would be a 1-D scan again).
+    """
+    n = x.shape[0]
+    rows = max(2, -(-n // _SCAN_ROW))
+    part = torch.nn.functional.pad(x.double(), (0, rows * _SCAN_ROW - n)).reshape(rows, _SCAN_ROW).cumsum(dim=1)
+    if n > _SCAN_ROW:
+        totals = fixed_order_cumsum(part[:, -1])
+        part[1:] += totals[:-1, None]
+    return part.reshape(-1)[:n].to(x.dtype)
+
+
 def _draw_slots(cdf, u):
     """Inverse-CDF slot draw from uniforms ``u`` in [0, 1), kept STRICTLY below
     the total: at u == total, searchsorted would land on the trailing
@@ -131,7 +153,7 @@ def sample_surface_points(level, generator=None, num_points=10000, isoval=0.5, u
     """
     n = level.shape[0] - 1
     dev = level.device
-    cdf = torch.cumsum(triangle_areas(level, isoval), dim=0)
+    cdf = fixed_order_cumsum(triangle_areas(level, isoval))
     total = cdf[-1]
     if u_slots is None:
         u_slots = torch.rand(num_points, generator=generator, device=dev)
@@ -182,7 +204,7 @@ def sample_surface_points_cells(
         for dx, dy, dz in _CORNER_OFF.tolist()
     ]
     areas = _corner_areas(vals, isoval) * cell_valid[:, None, None, None, None]
-    cdf = torch.cumsum(areas.reshape(-1), dim=0)
+    cdf = fixed_order_cumsum(areas.reshape(-1))
     total = cdf[-1]
 
     if u_slots is None:
