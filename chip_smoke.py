@@ -29,12 +29,14 @@ Phases (one line or more each, any failure exits non-zero):
      be bit-equal (and whether torch.cumsum of its areas is, for the record);
   6. K2 (nearest neighbour + argmin, exact refinement) against its plain
      version at the exact brute-force stage's shape (B=48, N=M=10,000) and at
-     a ragged one (B=3, N=1,000, M=777), on unit-scale clouds: refined
-     distances within 1e-5; argmins equal on >= 99.9% of points and, where
-     they differ, equally near within 1e-5; rolling the rows of x1 rolls the
-     results exactly;
+     a ragged one (B=3, N=1,000, M=777), on unit-scale clouds, and at the
+     exact stage's real distribution: 48 rotations of a unit-normalised
+     10,000-point torus surface cloud against a shared (stride-0) GT cloud of
+     10,000, in both directions: refined distances within 1e-5; argmins
+     equal on >= 99.9% of points and, where they differ, equally near within
+     1e-5; rolling the rows of x1 rolls the results exactly;
   7. K3 (bf16 cross term, min only) against its plain version at the coarse
-     stage's shape (B=192, N=M=1,024), within 1e-5;
+     stage's shape (B=192, N=M=1,024) and at B=3, N=1,000, M=777, within 1e-5;
   8. a planted rotation: a GT cloud of 10,000 points on an analytic torus and
      an independent 10,000-point draw of it turned by the inverse of sphere
      rotation k; exhaustive and pruned brute force both find a CD no larger
@@ -48,9 +50,14 @@ Phases (one line or more each, any failure exits non-zero):
      with K3 in the coarse stage and K2 in the exact one); kernel launches
      against what the code implies; finite metrics; the three result files
      written and parsed back; seconds per sample;
- 10. CUDA-event times of K2 and K3 at the shapes of 6 and 7, of their plain
-     versions and of the library yardstick (``torch.cdist`` then ``.min``),
-     and the bounds.
+ 10. CUDA-event times of K2 and K3 at the exact and coarse shapes of 6 and 7
+     (the kernels from a CUDA graph of 20 launches, so the host's launch cost
+     stays out), of their plain versions and of the library yardstick
+     (``torch.cdist`` then ``.min``); two bounds each: the JAX CostEstimate's
+     FLOP at the fp32 SIMT peak, and the card bound (the product at the
+     tensor-core rate, one comparison a pair at the SIMT issue rate, the
+     bytes), with the share of the card bound; K2's time per final-posture
+     sample (288 launches) beside that posture's seconds per sample.
 Then one JSON line of kernel numbers, the nvidia-smi line again, and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -69,7 +76,9 @@ import numpy as np
 import torch
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
+H100_TF32_FLOPS = 495e12
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores (SIMT)
+H100_LANE_OPS_PER_S = 132 * 4 * 32 * 1.98e9  # lane-instructions: SMs x schedulers x lanes x boost clock
 H100_BYTES_PER_S = 3.35e12
 N_EVAL = 4  # analytic test samples per evaluation posture
 
@@ -238,6 +247,7 @@ def check_k1(dev):
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "card_bound_ms": bound_ms,  # its products already run on the tensor cores
         "library_ms": None,  # no single PyTorch call computes the decoder
     }
 
@@ -316,6 +326,23 @@ def build_kernels():
 def unit_clouds(B, N, M, seed):
     g = torch.Generator().manual_seed(seed)
     return (torch.rand(B, N, 3, generator=g) * 2 - 1).cuda(), (torch.randn(B, M, 3, generator=g) * 0.5).cuda()
+
+
+def surface_clouds(dev, n=10000, n_rot=48, seed=12):
+    """The exact brute-force stage's inputs: ``n_rot`` rotations of one
+    unit-normalised analytic torus cloud ``[n_rot, n, 3]`` and a GT cloud
+    drawn independently from the same surface, ``[n_rot, n, 3]`` at batch
+    stride 0."""
+    from zeroshape_tpu_torch.camera import get_rotation_sphere
+    from zeroshape_tpu_torch.data import analytic
+    from zeroshape_tpu_torch.metrics import eval3d
+
+    rng = np.random.default_rng(seed)
+    sdf, _ = analytic.make_sdf("torus", rng)
+    pred = torch.as_tensor(analytic.surface_points(sdf, n, rng), device=dev)
+    gt = torch.as_tensor(analytic.surface_points(sdf, n, rng), device=dev)
+    R = get_rotation_sphere(24, 24, 12, device=dev)[::144][:n_rot]
+    return eval3d.normalize_pc(eval3d._rotate(R, pred)), eval3d.normalize_pc(gt[None]).expand(n_rot, -1, -1)
 
 
 def check_k2(x1, x2, what):
@@ -439,7 +466,8 @@ def parse_results(tmp, res, thresholds):
 
 
 def evaluate_posture(model, samples, training):
-    """One evaluation of ``samples`` through ``shape_engine.evaluate``; returns its launches."""
+    """One evaluation of ``samples`` through ``shape_engine.evaluate``; returns
+    its launches and its seconds per sample."""
     from zeroshape_tpu_torch import recon
     from zeroshape_tpu_torch.config import eval_opt, full_opt
     from zeroshape_tpu_torch.runtime import shape_engine
@@ -473,30 +501,40 @@ def evaluate_posture(model, samples, training):
         fail(f"{name} posture launched {n}, expected {want}")
     if not all(np.isfinite(res[x]).all() for x in ("acc", "comp", "f_score")):
         fail(f"{name} posture gave non-finite metrics")
-    return n
+    return n, seconds / k
 
 
 def time_chamfer(x1, x2, fast):
-    """(kernel ms, plain ms, library ms, bound ms, bound_by) of K2 (or K3 with ``fast``)."""
+    """(kernel ms, plain ms, library ms, bound ms, bound_by, card bound ms) of K2 (or K3 with ``fast``)."""
+    from zeroshape_tpu_torch.compare_chamfer import graph_ms
     from zeroshape_tpu_torch.ops import chamfer as ch
 
     if fast:
-        ms = cuda_ms(lambda: ch.nn_min_squared_fast(x1, x2))
+        ms = graph_ms(lambda: ch.nn_min_squared_fast(x1, x2))
         plain_ms = cuda_ms(lambda: ch._nn_min_plain(x1, x2), warmup=1, iters=3)
     else:
-        ms = cuda_ms(lambda: ch.nn_one_way(x1, x2))
+        ms = graph_ms(lambda: ch.nn_one_way(x1, x2))
         plain_ms = cuda_ms(lambda: ch._refine(x1, x2, ch._nn_one_way_plain(x1, x2)[1]), warmup=1, iters=3)
     library_ms = cuda_ms(lambda: torch.cdist(x1, x2).min(dim=-1), warmup=1, iters=3)
     torch.cuda.empty_cache()
     B, N, M = x1.shape[0], x1.shape[1], x2.shape[1]
-    flops = (7 if fast else 9) * B * N * M  # the JAX CostEstimate per pair (chamfer.py:127-131, 183-187)
+    pairs = B * N * M
+    flops = (7 if fast else 9) * pairs  # the JAX CostEstimate per pair (chamfer.py:127-131, 183-187)
     nbytes = (x1.numel() + x2.numel()) * 4 + B * N * (4 if fast else 12)
     bound_ms = max(flops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
     bound_by = "operations" if flops / H100_FP32_FLOPS > nbytes / H100_BYTES_PER_S else "bytes"
-    print(f"{'K3' if fast else 'K2'} time at B={B}, N={N}, M={M}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"library (cdist + min) {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP "
-          f"at fp32 SIMT, {nbytes / 1e6:.2f} MB); {flops / ms / 1e9:.1f} TFLOP/s achieved")
-    return ms, plain_ms, library_ms, bound_ms, bound_by
+    # the card bound: [a, 1].[-2b, |b|^2] on the tensor cores (depth 4 in TF32,
+    # 3 in bf16 for K3), one comparison a pair on the SIMT pipes, the bytes
+    parts = {"tensor": 2 * (3 if fast else 4) * pairs / (H100_BF16_FLOPS if fast else H100_TF32_FLOPS),
+             "comparisons": pairs / H100_LANE_OPS_PER_S, "bytes": nbytes / H100_BYTES_PER_S}
+    card_ms = max(parts.values()) * 1e3
+    name = "K3" if fast else "K2"
+    print(f"{name} time at B={B}, N={N}, M={M}: kernel {ms:.4f} ms (CUDA graph of 20), plain {plain_ms:.3f} ms, "
+          f"library (cdist + min) {library_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP "
+          f"at fp32 SIMT, {nbytes / 1e6:.2f} MB), {bound_ms / ms:.1%} of it; card bound {card_ms:.4f} ms "
+          f"({max(parts, key=parts.get)}: {', '.join(f'{k} {v * 1e3:.4f}' for k, v in parts.items())} ms), "
+          f"{card_ms / ms:.1%} of it")
+    return ms, plain_ms, library_ms, bound_ms, bound_by, card_ms
 
 
 def main():
@@ -529,7 +567,11 @@ def main():
 
     with torch.inference_mode():
         exact = unit_clouds(48, 10000, 10000, seed=5)  # one exact brute-force batch
-        k2_err = max(check_k2(*exact, "B=48, N=M=10,000"), check_k2(*unit_clouds(3, 1000, 777, seed=6), "B=3, N=1,000, M=777"))
+        rot, gt = surface_clouds(dev)
+        k2_err = max(check_k2(*exact, "B=48, N=M=10,000"), check_k2(*unit_clouds(3, 1000, 777, seed=6), "B=3, N=1,000, M=777"),
+                     check_k2(rot, gt, "48 rotations of a torus cloud -> shared GT, N=M=10,000"),
+                     check_k2(gt, rot, "shared GT -> 48 rotations of a torus cloud, N=M=10,000"))
+        del rot, gt
         coarse = unit_clouds(192, 1024, 1024, seed=7)  # one coarse batch
         k3_err = max(check_k3(*coarse, "B=192, N=M=1,024"), check_k3(*unit_clouds(3, 1000, 777, seed=8), "B=3, N=1,000, M=777"))
     planted_rotation(dev)
@@ -538,12 +580,16 @@ def main():
     samples = analytic.eval_samples(n_objects=N_EVAL, n_views=2, H=224, seed=0)
     print(f"evaluation: {len(samples)} analytic test samples (224^2, 10,000 GT points) made in "
           f"{time.perf_counter() - t0:.1f} s")
-    final = evaluate_posture(model, samples, training=False)
-    val = evaluate_posture(model, samples, training=True)
+    final, final_s = evaluate_posture(model, samples, training=False)
+    val, _ = evaluate_posture(model, samples, training=True)
 
     with torch.inference_mode():
         k2_times = time_chamfer(*exact, fast=False)
         k3_times = time_chamfer(*coarse, fast=True)
+    k2_sample = 288 * k2_times[0] / 1e3
+    print(f"final posture: K2 takes 288 x {k2_times[0]:.4f} ms = {k2_sample:.4f} s a sample of the posture's "
+          f"{final_s:.4f} s ({k2_sample / final_s:.1%}); the rest, {final_s - k2_sample:.4f} s, is K1's dense "
+          f"decode, the encoder, the sampler and the search's host loop")
 
     # launches: the sum over the path runs (main path, final and validation
     # posture), each counted from 0
@@ -553,17 +599,18 @@ def main():
     for name, key, times, err, line in (
         ("chamfer_nn", "K2", k2_times, k2_err, 63), ("chamfer_nn_min_bf16", "K3", k3_times, k3_err, 138),
     ):
-        ms, plain_ms, library_ms, bound_ms, bound_by = times
+        ms, plain_ms, library_ms, bound_ms, bound_by, card_ms = times
         kernels.append({
             "name": name, "route": "cuda", "source": "zeroshape_tpu_torch/csrc/chamfer.cu",
             "replaces": f"zeroshape_tpu/ops/chamfer.py:{line}", "launches": launches[key], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "card_bound_ms": card_ms,
+            "library_ms": library_ms,
         })
     if min(launches.values()) == 0:
         fail(f"a kernel of the paths was never launched: {launches}")
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms"]
+             "bound_ms", "bound_by", "card_bound_ms", "library_ms"]
     print(json.dumps({"kernels": [{k: kern[k] for k in order} for kern in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

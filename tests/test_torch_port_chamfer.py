@@ -117,6 +117,83 @@ def test_wrappers_reject_bad_operands(x1, x2):
             fn(x1, x2)
 
 
+def _tf32(x):
+    """fp32 -> TF32 (10 mantissa bits), to nearest with ties away from zero,
+    as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits, then mask them."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _fma(x, y, z):
+    """fp32 fused multiply-add: the float64 product is exact, one rounding to fp32."""
+    return (x.astype(np.float64) * y + z).astype(np.float32)
+
+
+def _tensor_core_k2_argmin(a, b, chunk=128):
+    """K2's choice on the card (``csrc/chamfer.cu``), emulated for one cloud
+    pair ``a [N, 3]``, ``b [M, 3]``: the 3xTF32 tensor-core value
+    ``|b|^2 - 2 a.b`` picks, for each of the four lanes that share a row
+    (columns with ``(j % 8) // 2 == t``), the first 128-column chunk holding
+    that lane's min; the lane rescans its columns of that chunk in the plain
+    fp32 arithmetic, and the four candidates reduce by that value, the lower
+    index winning a tie."""
+    f64 = np.float64
+    nb = (b[:, 0] * b[:, 0] + b[:, 1] * b[:, 1]) + b[:, 2] * b[:, 2]
+    bv = np.concatenate([-2.0 * b, nb[:, None]], axis=1)  # [-2b, |b|^2], fp32
+    bhi = _tf32(bv)
+    blo = _tf32(bv - bhi)
+    ahi = _tf32(a)
+    alo = _tf32(a - ahi)
+    ahi1 = np.concatenate([ahi, np.ones((len(a), 1), np.float32)], axis=1)
+    # m16n8k8: [a_hi, 1, a_lo, 0].[b_hi, |b|^2_hi, b_hi, *]; then m16n8k4: [a_hi, 1].[b_lo, |b|^2_lo]
+    step1 = (ahi1.astype(f64) @ bhi.T.astype(f64) + alo.astype(f64) @ bhi[:, :3].T.astype(f64)).astype(np.float32)
+    tc = (step1.astype(f64) + ahi1.astype(f64) @ blo.T.astype(f64)).astype(np.float32)
+    na = (a[:, 0] * a[:, 0] + a[:, 1] * a[:, 1]) + a[:, 2] * a[:, 2]
+    cross = _fma(a[:, None, 2], bv[None, :, 2], _fma(a[:, None, 1], bv[None, :, 1], a[:, None, 0] * bv[None, :, 0]))
+    plain = (na[:, None] + nb[None, :]) + cross
+    j = np.arange(len(b))
+    rows = np.arange(len(a))
+    best_v = np.full(len(a), np.inf, np.float32)
+    best_j = np.full(len(a), len(b))
+    for t in range(4):
+        cols = j[(j % 8) // 2 == t]
+        if len(cols) == 0:
+            continue
+        c = cols[np.argmin(tc[:, cols], axis=1)] // chunk
+        pv = np.where(cols[None, :] // chunk == c[:, None], plain[:, cols], np.inf)
+        k = np.argmin(pv, axis=1)
+        v, jj = pv[rows, k], cols[k]
+        take = (v < best_v) | ((v == best_v) & (jj < best_j))
+        best_v, best_j = np.where(take, v, best_v), np.where(take, jj, best_j)
+    return best_j
+
+
+@pytest.mark.parametrize("kind", ["torus", "capsule"])
+def test_tensor_core_rounding_keeps_the_plain_argmin(kind):
+    """The card's K2 rounding, emulated on the CPU, on two draws of one
+    unit-normalised analytic surface (~2,000 points each, one turned): its
+    argmins equal the plain version's on >= 99.9% of points, and where they
+    differ the two candidates are equally near within 1e-5 (chip_smoke.py's
+    gate)."""
+    from zeroshape_tpu_torch.camera import get_rotation_sphere
+    from zeroshape_tpu_torch.data import analytic
+    from zeroshape_tpu_torch.metrics.eval3d import normalize_pc
+
+    rng = np.random.default_rng(17)
+    sdf, _ = analytic.make_sdf(kind, rng)
+    R = get_rotation_sphere(4, 4, 4, device="cpu")[37]
+    pred = normalize_pc(t(analytic.surface_points(sdf, 2000, rng))[None] @ R.T)[0].numpy()
+    gt = normalize_pc(t(analytic.surface_points(sdf, 1900, rng))[None])[0].numpy()
+    for a, b in ((pred, gt), (gt, pred)):
+        got = _tensor_core_k2_argmin(a, b)
+        _, ref = tch._nn_one_way_plain(t(a)[None], t(b)[None])
+        ref = ref[0].numpy()
+        same = got == ref
+        assert same.mean() >= 0.999, same.mean()
+        d = lambda idx: ((a - b[idx]) ** 2).sum(axis=1)  # noqa: E731
+        np.testing.assert_allclose(d(got)[~same], d(ref)[~same], rtol=0, atol=1e-5)
+
+
 def test_operand_layouts():
     """The kernels read a batch stride, 0 for a shared cloud; only a cloud
     whose rows are not contiguous ``[N, 3]`` is copied."""

@@ -123,36 +123,69 @@ def _clouds(B, N, M, seed):
     return (torch.rand(B, N, 3, generator=g) * 2 - 1).cuda(), (torch.randn(B, M, 3, generator=g) * 0.5).cuda()
 
 
+# shapes a tile-based kernel gets wrong: M = 1, N = 1, N and M off the 16-row
+# mma tile, the 128-row block, the 64-column slice, the 128-column argmin
+# chunk and the 512-column stage
+RAGGED = [(2, 64, 64), (3, 1000, 777), (2, 17, 1), (2, 1, 7), (2, 7, 17), (1, 777, 1000), (2, 129, 513)]
+
+
+def _operands(x1, x2, shared):
+    """The clouds as the paths give them: a cloud shared by the batch is an
+    ``expand`` of one (batch stride 0), on either side."""
+    B = x1.shape[0]
+    if shared == "A":
+        return x1[:1].expand(B, -1, -1), x2
+    if shared == "B":
+        return x1, x2[:1].expand(B, -1, -1)
+    return x1, x2
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N,M", [(2, 64, 64), (3, 1000, 777)])
+@pytest.mark.parametrize("B,N,M", RAGGED)
 def test_nn_one_way_kernel_matches_plain(B, N, M):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     x1, x2 = _clouds(B, N, M, 3)
-    for shared in (False, True):
-        b = x2[:1].expand(B, -1, -1) if shared else x2
+    for shared in (None, "A", "B"):
+        a, b = _operands(x1, x2, shared)
         launches = ch.nn_one_way.launches
-        dist, idx = ch.nn_one_way(x1, b)
+        dist, idx = ch.nn_one_way(a, b)
         assert ch.nn_one_way.launches == launches + 1
-        _, ref_idx = ch._nn_one_way_plain(x1, b)
-        ref = ch._refine(x1, b, ref_idx)
+        _, ref_idx = ch._nn_one_way_plain(a, b)
+        ref = ch._refine(a, b, ref_idx)
         torch.testing.assert_close(dist, ref, rtol=0, atol=1e-5)
         same = idx == ref_idx
         assert float(same.float().mean()) >= 0.999
         # where the argmins differ, the two candidates are equally near
-        torch.testing.assert_close(ch._refine(x1, b, idx)[~same], ref[~same], rtol=0, atol=1e-5)
+        torch.testing.assert_close(ch._refine(a, b, idx)[~same], ref[~same], rtol=0, atol=1e-5)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N,M", [(2, 64, 64), (3, 1000, 777)])
+def test_nn_one_way_kernel_takes_the_lower_index_of_duplicates():
+    """Point j and j + 500 of B coincide: every argmin is below 500, as the
+    plain version's first index on ties."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x1, x2 = _clouds(2, 1000, 500, 5)
+    dup = torch.cat([x2, x2], dim=1)
+    _, idx = ch.nn_one_way(x1, dup)
+    _, ref_idx = ch._nn_one_way_plain(x1, dup)
+    assert int(idx.max()) < 500 and int(ref_idx.max()) < 500
+    assert float((idx == ref_idx).float().mean()) >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M", RAGGED)
 def test_nn_min_fast_kernel_matches_plain(B, N, M):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     x1, x2 = _clouds(B, N, M, 4)
-    launches = ch.nn_min_squared_fast.launches
-    got = ch.nn_min_squared_fast(x1, x2)
-    assert ch.nn_min_squared_fast.launches == launches + 1
-    torch.testing.assert_close(got, ch._nn_min_plain(x1, x2), rtol=0, atol=1e-5)
+    for shared in (None, "A", "B"):
+        a, b = _operands(x1, x2, shared)
+        launches = ch.nn_min_squared_fast.launches
+        got = ch.nn_min_squared_fast(a, b)
+        assert ch.nn_min_squared_fast.launches == launches + 1
+        torch.testing.assert_close(got, ch._nn_min_plain(a, b), rtol=0, atol=1e-5)
 
 
 @pytest.mark.gpu

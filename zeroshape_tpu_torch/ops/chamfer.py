@@ -34,13 +34,15 @@ def build():
     return _build.build(_SOURCE, _NAME)
 
 
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES = {  # the C entry points of csrc/chamfer.cu
+    "zs_nn_one_way": [_p, _p, _ll, _ll, _i, _i, _i, _p, _p, _p],
+    "zs_nn_min_fast": [_p, _p, _ll, _ll, _i, _i, _i, _p, _p],
+}
+
+
 def _library():
-    p, i = ctypes.c_void_p, ctypes.c_int
-    ll = ctypes.c_longlong
-    return _build.library(_SOURCE, _NAME, {
-        "zs_nn_one_way": [p, p, ll, ll, i, i, i, p, p, p],
-        "zs_nn_min_fast": [p, p, ll, ll, i, i, i, p, p],
-    })
+    return _build.library(_SOURCE, _NAME, SIGNATURES)
 
 
 # ---------------------------------------------------------------------------
