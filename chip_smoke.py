@@ -57,15 +57,31 @@ Phases (one line or more each, any failure exits non-zero):
      FLOP at the fp32 SIMT peak, and the card bound (the product at the
      tensor-core rate, one comparison a pair at the SIMT issue rate, the
      bytes), with the share of the card bound; K2's time per final-posture
-     sample (288 launches) beside that posture's seconds per sample.
+     sample (288 launches) beside that posture's seconds per sample;
+ 11. training (``runtime/shape_engine.train``, the ``shape_gen`` recipe at
+     full width, bf16 autocast) on ``data.analytic.train_samples(4, 8, 224)``:
+     28 training and 4 validation views; 2 epochs of 3 steps at batch 8,
+     validation before the first step and after epoch 2 (vox 128, batch 1,
+     no brute force); the s/step median over steps 2-6 (host clock, each
+     step ending in a sync), samples/s, peak memory, the losses; K1/K2/K3
+     launches in the train steps (0: the step decodes with the plain decoder,
+     which has a backward) and in validation (K1 and K2, no K3); a batch-28
+     step with the shape loss only (``options/shape.yaml``'s batch), timed
+     with its peak memory; 20 steps on one fixed batch of 8, whose last 5
+     losses must average below the first 5; one fp32 step at tiny width on
+     the card and on the CPU (TF32 off, the same weights, batch and
+     stochastic-depth masks): updated parameters within 1e-4; a checkpoint
+     written, read back into a fresh graph and optimizer, the same state.
 Then one JSON line of kernel numbers, the nvidia-smi line again, and the
 result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -537,6 +553,309 @@ def time_chamfer(x1, x2, fast):
     return ms, plain_ms, library_ms, bound_ms, bound_by, card_ms
 
 
+def train_run(dev):
+    """The ``shape_gen`` recipe through ``shape_engine.train`` for 2 epochs of 3
+    steps at batch 8; returns (the run's result, its data, its options, the
+    validations' launches summed)."""
+    from zeroshape_tpu_torch import config
+    from zeroshape_tpu_torch.data import analytic
+    from zeroshape_tpu_torch.parallel import train as ptrain
+    from zeroshape_tpu_torch.runtime import shape_engine
+
+    t0 = time.perf_counter()
+    data = analytic.train_samples(n_objects=4, n_views=8, H=224, seed=0)
+    print(f"training data: {len(data)} training and {len(data.val)} validation views (224^2) made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    opt = config.override_options(config.shape_gen_opt(), {
+        "max_epoch": 2, "tb": None, "freq": {"print": 1, "scalar": 3, "ckpt_latest": 1000, "eval": 2}})
+    steps, vals = [], []
+    step, validate = ptrain.train_step, shape_engine.validate
+
+    def timed_step(*args, **kwargs):  # each step from 0 launches to its sync
+        reset_counts()
+        t = time.perf_counter()
+        out = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t, launch_counts()))
+        return out
+
+    def counted_validation(*args, **kwargs):
+        reset_counts()
+        out = validate(*args, **kwargs)
+        torch.cuda.synchronize()
+        vals.append(launch_counts())
+        return out
+
+    ptrain.train_step, shape_engine.validate = timed_step, counted_validation
+    out = tempfile.mkdtemp()  # checkpoints of ~2.3 GB each: removed at once
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = shape_engine.train(opt, data, out, device=dev)
+        seconds = time.perf_counter() - t0
+        files = sorted(os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out) for f in fs)
+    finally:
+        ptrain.train_step, shape_engine.validate = step, validate
+        shutil.rmtree(out)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s_step = [s for s, _ in steps]
+    med = float(np.median(s_step[1:6]))
+    in_steps = {k: sum(n[k] for _, n in steps) for k in ("K1", "K2", "K3")}
+    in_val = {k: sum(n[k] for n in vals) for k in ("K1", "K2", "K3")}
+    print(f"training (shape_gen recipe, batch {opt.batch_size}, bf16 autocast): {len(steps)} steps, median "
+          f"{med:.4f} s/step over steps 2-{len(s_step)} (per step {[round(x, 4) for x in s_step]}), "
+          f"{opt.batch_size / med:.2f} samples/s; peak memory {peak:.2f} GiB; the whole run {seconds:.1f} s with "
+          f"{len(vals)} validations; files written {files}")
+    print(f"training losses: {[round(x, 5) for x in res['losses']]}; validation CD {res['val']}; "
+          f"best {res['best_val']:.6f} @ epoch {res['best_ep']}")
+    print(f"training launches: in the train steps {in_steps}, in validation {in_val} ({len(data.val)} samples each)")
+    if len(steps) != 6 or not np.isfinite(res["losses"]).all() or len(res["losses"]) != 6:
+        fail(f"training took {len(steps)} steps, losses {res['losses']}")
+    if not all(np.isfinite(cd) for _, cd in res["val"]) or [ep for ep, _ in res["val"]] != [0, 2]:
+        fail(f"validation {res['val']}")
+    if any(in_steps.values()) or in_val["K1"] == 0 or in_val["K2"] == 0 or in_val["K3"]:
+        fail(f"launches in the train steps {in_steps} (want none), in validation {in_val} (want K1, K2, no K3)")
+    if sorted(files) != ["best.ckpt", "checkpoint/ep1.ckpt", "latest.ckpt"]:
+        fail(f"checkpoint files {files}")
+    return res, data, opt, in_val
+
+
+def train_steps(dev, res, data, opt):
+    """:func:`overfit` on the trained graph, then a batch-28 step with the
+    shape loss only; returns the batch-28 step's seconds."""
+    from zeroshape_tpu_torch import config
+    from zeroshape_tpu_torch.parallel import train as ptrain
+    from zeroshape_tpu_torch.runtime import shape_engine
+
+    graph = res["graph"]
+    overfit(dev, graph, res["optimizer"], data, opt)
+    big = config.override_options(copy.deepcopy(opt), {"batch_size": 28, "loss_weight": {"depth": None, "intr": None}})
+    batch = shape_engine.to_device(data.batch(np.arange(28), 0, 0, opt.training.n_sdf_points), dev)
+    optimizer = ptrain.make_optimizer(graph, big.optim)
+    times = []
+    for it in range(2):  # a warm-up step at the new shape, then the timed one
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics, _ = ptrain.train_step(graph, optimizer, batch, big, shape_engine.step_generator(0, it, dev))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"batch-28 step (shape loss only): {times[1]:.4f} s ({28 / times[1]:.2f} samples/s; warm-up step "
+          f"{times[0]:.4f} s), peak memory {peak:.2f} GiB, loss {float(metrics['loss_all']):.5f}")
+    del batch, optimizer, metrics
+    torch.cuda.empty_cache()
+    return times[1]
+
+
+def overfit(dev, graph, optimizer, data, opt):
+    """20 steps on one fixed batch of 8, continuing the training run's
+    optimizer, with every decoder block kept, so that only the updates change
+    the loss: the mean of the last 5 losses must fall below 0.9 x the mean
+    of the first 5. (A fresh optimizer would first move every parameter by
+    lr at once, and the loss jumps before it falls.)"""
+    from zeroshape_tpu_torch.parallel import train as ptrain
+    from zeroshape_tpu_torch.runtime import shape_engine
+
+    batch = shape_engine.to_device(data.batch(data.batch_order(0, 8, 0)[0], 0, 0, opt.training.n_sdf_points), dev)
+    impl = graph.impl_network
+    keep = [torch.full((8,), 1 / (1 - impl.drop_path), device=dev) for _ in impl.blocks_attn]
+    losses = []
+    for _ in range(20):
+        metrics, _ = ptrain.train_step(graph, optimizer, batch, opt, dp_masks=keep)
+        losses.append(float(metrics["loss_all"]))
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"overfit on one batch of 8, 20 steps at lr {optimizer.lr():g}, no block dropped: losses "
+          f"{[round(x, 5) for x in losses]}; mean of the first 5 {first:.5f}, of the last 5 {last:.5f} "
+          f"({last / first:.4f} of it)")
+    if not np.isfinite(losses).all() or not last < 0.9 * first:
+        fail("20 steps on one fixed batch did not lower the loss below 0.9 x its start")
+
+
+def tiny_step_case(seed=2):
+    """The step that the card and the CPU both take: ``config.tiny_opt(64)``
+    in fp32 with every loss weighted as in ``shape_gen`` and lr 1e-2;
+    numpy-seeded random weights as the CPU parity tests draw them (parameters
+    and running means N(0, 0.05), running variances U(0.6, 1.4)), the depth
+    head's last conv scaled into its clamp so that every encoder gets a
+    gradient; a random batch of 4 whose samples differ in brightness and mask
+    rate; shared stochastic-depth masks. Returns ``(opt, graph, batch, masks)``."""
+    from zeroshape_tpu_torch import config
+    from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+
+    H, B, n_pts = 64, 4, 64
+    opt = config.tiny_opt(H)
+    opt.arch.dtype = "float32"
+    opt.loss_weight = {"shape": 1, "depth": 1, "intr": 10}
+    opt.optim.lr = opt.optim.lr_ft = 1e-2
+    graph = ShapeGraph.from_opt(opt)
+    rng = np.random.default_rng(seed)
+    params = dict(graph.named_parameters())
+    with torch.no_grad():
+        for k, t in graph.state_dict().items():
+            if k.endswith("running_var"):
+                t.copy_(torch.from_numpy(rng.uniform(0.6, 1.4, t.shape).astype(np.float32)))
+            elif k in params or k.endswith("running_mean"):
+                t.copy_(torch.from_numpy(rng.normal(0.0, 0.05, t.shape).astype(np.float32)))
+        head = graph.dpt_depth.scratch.output_conv[4]
+        head.weight.mul_(1e-2)
+        head.bias.fill_(0.5)
+    f = 1.3875 * H
+    K = np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    pose = np.concatenate([np.eye(3), [[0.0], [0.0], [1.78]]], axis=1)
+    batch = {
+        "rgb_input_map": rng.uniform(0, 1, (B, H, H, 3)) * np.linspace(0.3, 1.0, B)[:, None, None, None],
+        "mask_input_map": rng.uniform(size=(B, H, H, 1)) < np.linspace(0.2, 0.9, B)[:, None, None, None],
+        "depth_input_map": rng.uniform(0.4, 1, (B, H, H, 1)),
+        "intr": np.tile(K, (B, 1, 1)),
+        "pose_gt": np.tile(pose, (B, 1, 1)),
+        "gt_sample_points": rng.normal(size=(B, n_pts, 3)) * 0.3,
+        "gt_sample_sdf": rng.normal(size=(B, n_pts)) * 0.05,
+    }
+    batch = {k: torch.tensor(np.asarray(v, np.float32)) for k, v in batch.items()}
+    masks = [torch.tensor([1 / 0.9, 0.0, 1 / 0.9, 1 / 0.9]), torch.tensor([0.0, 1 / 0.9, 1 / 0.9, 0.0])]
+    return opt, graph, batch, masks
+
+
+def step_on(where, opt, graph, batch, masks, threads=None):
+    """One :func:`tiny_step_case` step on ``where`` (on the CPU with
+    ``threads`` threads if given): ``(state dict, gradients, metrics)``, all on
+    the CPU."""
+    from zeroshape_tpu_torch.parallel import train as ptrain
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(threads or n)
+    try:
+        g = copy.deepcopy(graph).to(where).train()
+        optimizer = ptrain.make_optimizer(g, opt.optim)
+        grads = ptrain.capture_grads(g, optimizer)
+        metrics, _ = ptrain.train_step(g, optimizer, {k: v.to(where) for k, v in batch.items()}, opt,
+                                       dp_masks=[m.to(where) for m in masks])
+    finally:
+        torch.set_num_threads(n)
+    return ({k: v.cpu() for k, v in g.state_dict().items()}, {k: v.cpu() for k, v in grads.items()},
+            {k: float(v) for k, v in metrics.items()})
+
+
+def step_disagreements(opt, graph, cpu, card, cpu_1):
+    """What differs between the CPU's and the card's step beyond the stated
+    tolerances, as a list of strings, and a summary dict. ``cpu_1`` is the
+    CPU's step on one thread: the gradient of an fp32 step is only as
+    reproducible as its sums' order allows, and the coordinate encoder's
+    (BatchNorm over 4 samples on 1x1 maps) moves by some 2e-2 of its norm
+    between thread counts, while the other modules move by ~1e-5. So each
+    module (a top-level child of the graph) gets a relative tolerance r, 1e-3
+    or 4x what the two CPU runs differ by, relative to its gradient norm,
+    where that is larger:
+
+    * losses: 1e-4 relative;
+    * each module's gradient: the norm of the difference within r x its
+      gradient norm;
+    * each parameter's gradient: max |d| within r x its norm + 1e-5 x its
+      module's + 4 x the CPU runs' max |d|;
+    * the update: the card's parameters against the CPU optimizer applied to
+      the card's gradients, 1e-4, which is 1% of AdamW's first step at lr
+      1e-2 (against the CPU's own step, an element whose gradient lies
+      within rounding of zero may move by +-lr either way);
+    * BatchNorm statistics: 1e-4, relative above 1.
+    """
+    from zeroshape_tpu_torch.parallel import train as ptrain
+
+    (cpu_sd, cpu_g, cpu_m), (card_sd, card_g, card_m), one_g = cpu, card, cpu_1[1]
+    bad = [f"loss {k}: {card_m[k]} vs {v}" for k, v in cpu_m.items() if abs(card_m[k] - v) > 1e-4 * max(1.0, abs(v))]
+    if not card_g.keys() == cpu_g.keys() == one_g.keys():
+        return bad + ["different parameters have gradients"], {}
+
+    def dist(x, y, ks):
+        return float(torch.sqrt(sum((x[k].double() - y[k].double()).square().sum() for k in ks)))
+
+    mods = {}
+    for k in cpu_g:
+        mods.setdefault(k.split(".")[0], []).append(k)
+    summary = {"live": sum(float(v.norm()) > 0 for v in cpu_g.values()), "modules": {}}
+    zero = {k: torch.zeros_like(v) for k, v in cpu_g.items()}
+    for m, ks in mods.items():
+        norm, diff, spread = dist(cpu_g, zero, ks), dist(card_g, cpu_g, ks), dist(one_g, cpu_g, ks)
+        rel = max(1e-3, 4 * spread / max(norm, 1e-30))
+        summary["modules"][m] = (diff / max(norm, 1e-30), spread / max(norm, 1e-30), norm)
+        if diff > rel * norm:
+            bad.append(f"module {m}: |d| {diff:.3e} of a gradient norm {norm:.3e} (CPU runs {spread:.3e})")
+        for k in ks:
+            d = float((card_g[k] - cpu_g[k]).abs().max())
+            if d > rel * float(cpu_g[k].norm()) + 1e-5 * norm + 4 * float((one_g[k] - cpu_g[k]).abs().max()):
+                bad.append(f"gradient {k}: max|d| {d:.3e}, norm {float(cpu_g[k].norm()):.3e}")
+    ref = copy.deepcopy(graph).train()
+    ref_opt = ptrain.make_optimizer(ref, opt.optim)
+    for n, p in ref.named_parameters():
+        p.grad = card_g.get(n)
+    ref_opt.step()
+    summary["update"] = max(float((card_sd[n] - p.detach()).abs().max()) for n, p in ref.named_parameters())
+    summary["stats"] = max(float(((card_sd[k] - v).abs() / v.abs().clamp(min=1)).max()) for k, v in cpu_sd.items()
+                           if "running_" in k)
+    if not summary["update"] <= 1e-4:
+        bad.append(f"update max|d| {summary['update']:.3e}")
+    if not summary["stats"] <= 1e-4:
+        bad.append(f"BatchNorm statistics max|d| {summary['stats']:.3e}")
+    if summary["live"] < 500:
+        bad.append(f"only {summary['live']} parameters have a gradient")
+    return bad, summary
+
+
+def cuda_against_cpu(dev):
+    """:func:`tiny_step_case`'s step on the card and on the CPU (and on one
+    CPU thread), TF32 off, held to :func:`step_disagreements`; returns the
+    max |d| of the update."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt, graph, batch, masks = tiny_step_case()
+    cpu = step_on("cpu", opt, graph, batch, masks)
+    cpu_1 = step_on("cpu", opt, graph, batch, masks, threads=1)
+    card = step_on(dev, opt, graph, batch, masks)
+    bad, summary = step_disagreements(opt, graph, cpu, card, cpu_1)
+    mods = ", ".join(f"{m} {r:.2e} (CPU runs {x:.2e}, norm {n:.3g})" for m, (r, x, n) in
+                     summary.get("modules", {}).items())
+    print(f"train step at tiny width (fp32, TF32 off, H=64, batch 4, lr 1e-2), card against CPU: loss "
+          f"{card[2]['loss_all']:.6f} vs {cpu[2]['loss_all']:.6f}; {summary.get('live')} parameters with a gradient; "
+          f"gradient |d| / norm by module: {mods}; update against the CPU optimizer on the card's gradients max|d| "
+          f"{summary.get('update', float('nan')):.3e}; BatchNorm statistics max rel|d| "
+          f"{summary.get('stats', float('nan')):.3e}")
+    if bad:
+        fail(f"the training step on the card disagrees with the CPU: {bad[:6]} ({len(bad)} in all)")
+    return summary["update"]
+
+
+def checkpoint_round_trip(res, opt):
+    """Save the trained graph and optimizer, load both into fresh ones, compare."""
+    from zeroshape_tpu_torch.models import resolve_compute_dtype
+    from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+    from zeroshape_tpu_torch.parallel import train as ptrain
+    from zeroshape_tpu_torch.runtime import engine_base
+
+    graph, optimizer = res["graph"], res["optimizer"]
+    dev = next(graph.parameters()).device
+    out = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        path = engine_base.save_checkpoint(out, graph, optimizer, 1, res["it"], res["best_val"], res["best_ep"],
+                                           latest=True)
+        size = os.path.getsize(path)
+        fresh = ShapeGraph.from_opt(opt, dtype=resolve_compute_dtype(opt, dev)).to(dev)
+        fresh_opt = ptrain.make_optimizer(fresh, opt.optim)
+        meta = engine_base.restore_checkpoint(path, fresh, fresh_opt)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out)
+    want = graph.state_dict()
+    same = all(torch.equal(v, want[k]) for k, v in fresh.state_dict().items())
+    st, st_want = fresh_opt.state_dict()["adamw"]["state"], optimizer.state_dict()["adamw"]["state"]
+    same_opt = st.keys() == st_want.keys() and all(
+        torch.equal(st[i][n], st_want[i][n]) for i in st for n in ("exp_avg", "exp_avg_sq"))
+    print(f"checkpoint round trip: {size / 2**30:.2f} GiB written and read back in {seconds:.1f} s; "
+          f"state dict equal {same}, optimizer state equal {same_opt}, meta {meta}")
+    if not (same and same_opt and meta["iter"] == res["it"]):
+        fail("the checkpoint did not round-trip")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -591,9 +910,14 @@ def main():
           f"{final_s:.4f} s ({k2_sample / final_s:.1%}); the rest, {final_s - k2_sample:.4f} s, is K1's dense "
           f"decode, the encoder, the sampler and the search's host loop")
 
+    res, data, opt, train_val = train_run(dev)
+    train_steps(dev, res, data, opt)
+    cuda_against_cpu(dev)
+    checkpoint_round_trip(res, opt)
+
     # launches: the sum over the path runs (main path, final and validation
-    # posture), each counted from 0
-    launches = {k: main_launches * (k == "K1") + final[k] + val[k] for k in ("K1", "K2", "K3")}
+    # posture, the training run's validations), each counted from 0
+    launches = {k: main_launches * (k == "K1") + final[k] + val[k] + train_val[k] for k in ("K1", "K2", "K3")}
     k1["launches"] = launches["K1"]
     kernels = [k1]
     for name, key, times, err, line in (

@@ -6,11 +6,34 @@ to the port through ``zeroshape_tpu_torch.weights``. Arrays cross between
 the two as numpy.
 """
 
+import ctypes
+import gc
+
 import jax
 import numpy as np
+import pytest
 import torch
 
 from zeroshape_tpu_torch import weights
+
+
+@pytest.fixture(scope="module", autouse=True)
+def give_memory_back():
+    """At the end of a test module, hand what it freed back to the system.
+
+    A module that imports this fixture gets it for all its tests. glibc keeps
+    freed heap pages (torch's and XLA's host buffers) in its arenas, so an
+    xdist worker would otherwise hold a module's peak (up to ~8 GB for the
+    full train step) for the rest of the run, beside the other workers and
+    the 20 GB subprocess of ``test_graft_entry.py``'s dry run.
+    """
+    yield
+    gc.collect()
+    jax.clear_caches()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):  # not glibc: nothing to trim
+        pass
 
 
 def random_variables(module, *init_args, seed=0, **init_kw):

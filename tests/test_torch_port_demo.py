@@ -9,6 +9,8 @@ import demo as jdemo
 from zeroshape_tpu.config import load_options as j_load_options
 from zeroshape_tpu_torch import demo
 
+from test_torch_harness import give_memory_back  # noqa: F401 (autouse: frees the module's memory at its end)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(REPO, "options", "shape.yaml")
 

@@ -18,6 +18,7 @@ from zeroshape_tpu_torch.metrics import eval3d as te
 from zeroshape_tpu_torch.ops import marching_cubes as tmc
 
 from test_torch_harness import close, np32, t
+from test_torch_harness import give_memory_back  # noqa: F401 (autouse: frees the module's memory at its end)
 
 VOX = 32
 CENTERS = np.asarray([[0.0, 0.0, 0.0], [0.8, 0.6, -0.4], [-0.7, -0.9, 0.8]], np.float32)

@@ -1,5 +1,6 @@
 """The kernels against their plain versions, on the card: the fused decoder
-(K1) and the Chamfer kernels (K2, K3).
+(K1) and the Chamfer kernels (K2, K3); and a training step on the card
+against the same step on the CPU, which launches none of the kernels.
 
 These tests need a CUDA device and skip without one. This file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -202,3 +203,28 @@ def test_chamfer_kernels_reject_bad_operands(fn):
         fn(x, torch.zeros(3, 8, 3, device="cuda"))
     with pytest.raises(ValueError):
         fn(x, torch.zeros(2, 0, 3, device="cuda"))
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu_and_launches_no_kernel():
+    """``chip_smoke.tiny_step_case``'s fp32 step, TF32 off, on the card and on
+    the CPU (and on one CPU thread, for the CPU's own spread), held to
+    ``chip_smoke.step_disagreements``: losses, each module's and each
+    parameter's gradient, the update and the BatchNorm statistics. No K1, K2
+    or K3 launch (the step decodes with the plain decoder, which has a
+    backward)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import step_disagreements, step_on, tiny_step_case
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt, graph, batch, masks = tiny_step_case()
+    cpu = step_on("cpu", opt, graph, batch, masks)
+    cpu_1 = step_on("cpu", opt, graph, batch, masks, threads=1)
+    before = (ik.fused_decode.launches, ch.nn_one_way.launches, ch.nn_min_squared_fast.launches)
+    card = step_on("cuda", opt, graph, batch, masks)
+    torch.cuda.synchronize()
+    assert (ik.fused_decode.launches, ch.nn_one_way.launches, ch.nn_min_squared_fast.launches) == before
+    bad, _ = step_disagreements(opt, graph, cpu, card, cpu_1)
+    assert not bad, bad[:10]

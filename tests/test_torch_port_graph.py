@@ -1,10 +1,14 @@
 """PyTorch port vs the JAX package: DPT, coordinate encoder, intrinsics head,
-``encode_image`` and the reconstruction path, at H=64 (as tests/test_graphs.py).
+``encode_image``, the supervision half of the graph (``gt_supervision``, the
+training forward, ``attn_geo_stats``, BatchNorm on batch statistics) and the
+reconstruction path, at H=64 (as tests/test_graphs.py).
 
 One set of random JAX variables (tiny decoder, full-width encoders) goes to
 the port through ``weights.from_flax``. Tolerances follow
 tests/test_torch_parity.py: 1e-4 per module tap, 1e-3 end to end.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -19,11 +23,13 @@ from zeroshape_tpu.models.dpt import DPTDepthModel as JDPT
 from zeroshape_tpu.models.dpt import HybridViT as JHybridViT
 from zeroshape_tpu.models.graph_shape import IntrHead as JIntrHead
 from zeroshape_tpu.models.graph_shape import ShapeGraph as JShapeGraph
+from zeroshape_tpu.models.graph_shape import attn_geo_stats as j_attn_geo_stats
 from zeroshape_tpu.runtime.checkpoint import convert_torch_state_dict
 from zeroshape_tpu_torch import config, recon, weights
-from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+from zeroshape_tpu_torch.models.graph_shape import ShapeGraph, attn_geo_stats
 
 from test_torch_harness import close, nchw, nhwc, random_variables
+from test_torch_harness import give_memory_back  # noqa: F401 (autouse: frees the module's memory at its end)
 
 H = 64
 SHARPEN = 25.0
@@ -150,7 +156,7 @@ def test_calibrate_random_field_sets_the_active_cells():
     model = recon.build(config.tiny_opt(32), device="cpu", seed=0)
     rgb, mask = config.synthetic_image(32, seed=1)
     batch = {"rgb_input_map": rgb, "mask_input_map": mask}
-    target = 20  # of the 64 coarse cells at vox 16
+    target = 32  # of the 64 coarse cells at vox 16
     _, gain, n_calibrated = recon.calibrate_random_field(model, batch, target=target, vox_res=16)
     world, _, _, n_active, level = recon.reconstruct(
         model, batch, torch.Generator().manual_seed(0), vox_res=16, capacity=64, num_points=200,
@@ -210,3 +216,100 @@ def test_reconstruct_dense_level_grid_matches_jax(graphs):
     close(level, jlevel, 1e-3, "dense level grid")
     assert n_active is None
     assert world.shape == (300, 3) and torch.isfinite(world).all() and world.abs().max() <= 1.5
+
+
+def _supervised_batch(B=2, n_pts=300, seed=7):
+    """``_batch`` at H=64 with ties in ``|sdf|`` (150 zeros: the top 100 are a
+    tie broken by index) and a third of the SDF points on the visible depth
+    surface, so that ``attn_geo_seen`` counts some."""
+    b = {k: np.array(x) for k, x in _batch(B=B, H=H, n_pts=n_pts, seed=seed).items()}
+    rng = np.random.default_rng(seed)
+    b["gt_sample_sdf"][:, 50:200] = 0.0
+    K_inv = np.linalg.inv(b["intr"][0])
+    for i in range(B):
+        u, v = rng.integers(0, H, (2, n_pts // 3))
+        z = b["depth_input_map"][i, v, u, 0]
+        cam = (np.stack([u, v, np.ones_like(u)], -1) @ K_inv.T) * z[:, None]
+        b["gt_sample_points"][i, : n_pts // 3] = cam - b["pose_gt"][i, :, 3]  # R = I
+    return b
+
+
+def test_gt_supervision_matches_jax(graphs):
+    jmodel, v, port, _ = graphs
+    b = _supervised_batch()
+    want = jmodel.apply(v, {k: jnp.asarray(x) for k, x in b.items()}, method=lambda m, x: m.gt_supervision(x))
+    got = port.gt_supervision({k: torch.from_numpy(x) for k, x in b.items()})
+    assert set(got) == set(want)
+    for k in want:
+        close(got[k], want[k], 1e-5, k)
+
+
+def test_attn_geo_stats_matches_jax(graphs):
+    """``attn_geo_stats`` of both packages on the same supervision and a random
+    attention map ``[B, N, L]`` (the forward that makes them is held to JAX by
+    tests/test_torch_port_train.py)."""
+    jmodel, v, _, _ = graphs
+    b = _supervised_batch()
+    jb = {k: jnp.asarray(x) for k, x in b.items()}
+    sup = jmodel.apply(v, jb, method=lambda m, x: m.gt_supervision(x))
+    attn = np.random.default_rng(8).dirichlet(np.ones(17), size=(2, 300))[..., :16].astype(np.float32)
+    jout = dict(sup, attn=jnp.asarray(attn))
+    want = j_attn_geo_stats(None, jb, jout)
+    got = attn_geo_stats(None, {k: torch.from_numpy(x) for k, x in b.items()},
+                         {k: torch.from_numpy(np.array(x)) for k, x in jout.items()})
+    assert set(got) == set(want)
+    for k in want:
+        close(got[k], want[k], 1e-5, k)
+    assert float(got["attn_geo_seen"]) > 0
+
+
+def _distinct_maps(B, C, seed):
+    """NHWC maps whose samples differ in scale and mask rate, so that every
+    BatchNorm channel has a well-conditioned batch variance."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, H, H, C)).astype(np.float32) * np.linspace(0.5, 2.0, B, dtype=np.float32)[:, None, None, None]
+    mask = (rng.uniform(size=(B, H, H, 1)) < np.linspace(0.3, 0.9, B)[:, None, None, None]).astype(np.float32)
+    return x, mask
+
+
+def _bn_stats_close(port_module, entries, mutated):
+    """The port module's running statistics against the JAX ``batch_stats`` after one train-mode call."""
+    sd = port_module.state_dict()
+    n = 0
+    for key, coll, path, _ in entries:
+        if coll == "batch_stats":
+            node = mutated
+            for k in path:
+                node = node[k]
+            close(sd[key], node, 1e-4, key)
+            n += 1
+    assert n > 0
+
+
+def test_coord_encoder_and_intr_head_use_batch_statistics_in_train_mode(graphs):
+    """Under ``.train()`` the port's BatchNorms normalise with the batch
+    statistics and move their running statistics by the flax rule (momentum
+    0.9 in flax terms, the biased batch variance), as the JAX modules do under
+    ``train=True``."""
+    _, v, port, _ = graphs
+    port = copy.deepcopy(port)
+    cm, mask = _distinct_maps(4, 3, 8)
+    jvars = {"params": v["params"]["coord_encoder"], "batch_stats": v["batch_stats"]["coord_encoder"]}
+    want, mut = jax.jit(lambda vs, c, m: JCoordEncRes(latent_dim=64).apply(vs, c, m, True, mutable=["batch_stats"]))(
+        jvars, jnp.asarray(cm), jnp.asarray(mask))
+    port.coord_encoder.train()
+    with torch.no_grad():
+        got = port.coord_encoder(nchw(cm), nchw(mask))
+    close(got, want, 1e-4, "coord encoder tokens")
+    _bn_stats_close(port.coord_encoder, weights.map_coord_encoder(""), mut["batch_stats"])
+
+    feat, _ = _distinct_maps(4, 768, 9)
+    feat = feat[:, :4, :4]
+    jvars = {"params": v["params"]["intr_head"], "batch_stats": v["batch_stats"]["intr_head"]}
+    want, mut = JIntrHead().apply(jvars, jnp.asarray(feat), True, mutable=["batch_stats"])
+    port.intr_head.train()
+    with torch.no_grad():
+        got = port.intr_proj(port.intr_head(nchw(feat)))
+    close(got, want, 1e-4, "intrinsics parameters")
+    entries = weights._bottleneck_conv("0", ("bottleneck1",)) + weights._bottleneck_conv("1", ("bottleneck2",))
+    _bn_stats_close(port.intr_head, entries, mut["batch_stats"])

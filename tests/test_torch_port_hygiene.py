@@ -60,6 +60,7 @@ def test_port_sources_name_no_jax_package():
         lambda: eval3d.occupancy_grid_hierarchical(lambda p: p[..., 0], 8),
         lambda: camera.get_rotation_sphere(2, 2, 2),
         lambda: shape_engine.evaluate(None, [], config.eval_opt(config.tiny_opt(32)), ".", ["prim"]),
+        lambda: shape_engine.train(config.shape_gen_opt(32), None, "unused"),
     ],
 )
 def test_default_device_needs_cuda(entry, monkeypatch):

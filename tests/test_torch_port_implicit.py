@@ -29,6 +29,7 @@ from zeroshape_tpu_torch.models.implicit import Implicit
 from zeroshape_tpu_torch.ops import implicit_kernel as ik
 
 from test_torch_harness import close, np32, t
+from test_torch_harness import give_memory_back  # noqa: F401 (autouse: frees the module's memory at its end)
 
 
 def _bf16_bounds(got, want):
@@ -275,3 +276,40 @@ def test_ctypes_struct_and_constants_match_the_kernel_source():
     assert int(const["MAX_LP"]) == ik.MAX_LATENT and int(const["V_KEYS"]) == ik.V_KEYS
     assert int(const["FC_CHUNK"]) == ik.FC_CHUNK and int(const["C"]) == ik.C and int(const["HID"]) == ik.HIDDEN
     assert int(const["ROWS"]) * int(const["NCONS"]) == ik.TILE_POINTS
+
+
+def test_training_forward_matches_jax_with_shared_drop_path_masks(small):
+    """``Implicit.forward(train=True)`` against ``__call__(deterministic=False)``
+    with the same stochastic depth: an interceptor hands the JAX decoder's
+    ``_dp_masks`` fixed masks (one sample dropped in each block), the port
+    gets them as ``dp_masks``. Value and gradient with respect to the points."""
+    from flax import linen as fnn
+
+    m, v, port, latent, points = small
+    latent2 = np.concatenate([latent, latent[:, ::-1] * 0.5])
+    points2 = np.concatenate([points, points * 0.7])
+    masks = [np.array([1 / 0.9, 0.0], np.float32), np.array([0.0, 1 / 0.9], np.float32)]
+
+    def inject(next_fun, args, kwargs, context):
+        if isinstance(context.module, JImplicit) and context.method_name == "_dp_masks":
+            return [jnp.asarray(mk) for mk in masks]
+        return next_fun(*args, **kwargs)
+
+    w = np.random.default_rng(3).normal(size=(2, 300)).astype(np.float32)
+
+    def run(p):
+        return m.apply(v, jnp.asarray(latent2), None, p, deterministic=False, rngs={"dropout": jax.random.PRNGKey(0)})
+
+    with fnn.intercept_methods(inject):
+        occ_j, attn_j = jax.jit(run)(jnp.asarray(points2))
+        grad_j = jax.jit(jax.grad(lambda p: jnp.sum(run(p)[0] * w)))(jnp.asarray(points2))
+    port.train()
+    try:
+        pts = t(points2).requires_grad_(True)
+        occ, attn = port(t(latent2), pts, train=True, dp_masks=[t(mk) for mk in masks])
+        (occ * t(w)).sum().backward()
+    finally:
+        port.eval()
+    close(occ.detach(), occ_j, 1e-4, "logits")
+    close(attn.detach(), attn_j, 1e-4, "attention")
+    close(pts.grad, grad_j, 1e-4, "gradient")

@@ -18,6 +18,7 @@ from zeroshape_tpu_torch.models.graph_shape import intr_param2mtx as t_intr_para
 from zeroshape_tpu_torch.ops import image as timg
 
 from test_torch_harness import close, load_port, nchw, nhwc, random_variables, t
+from test_torch_harness import give_memory_back  # noqa: F401 (autouse: frees the module's memory at its end)
 
 TOL = 1e-5
 
@@ -177,3 +178,37 @@ def test_camera_geometry():
         close(g, w, TOL)
     for g, w in zip(tcam.normalize_seen_points(pts_t, t(mask)), jcam.normalize_seen_points(pts_j, jnp.asarray(mask))):
         close(g, w, TOL)
+
+
+@pytest.mark.parametrize("shape", [(4, 5, 5, 8), (6, 1, 1, 16)])
+def test_batchnorm_train_mode_follows_the_flax_rule(shape):
+    """Train mode: batch statistics for the output, running statistics moved by
+    flax's rule (momentum 0.9 in flax terms, the biased batch variance), not
+    by ``nn.BatchNorm2d``'s (the unbiased one)."""
+    x = _x(shape, 11) * 2.0 + 0.5
+    mod = jl.BatchNorm()
+    v = random_variables(mod, jnp.asarray(x), use_running_average=True)
+    want, mut = mod.apply(v, jnp.asarray(x), use_running_average=False, mutable=["batch_stats"])
+    port = load_port(tl.BatchNorm(shape[-1]), W._bn("", ()), v).train()
+    with torch.no_grad():
+        got = port(nchw(x))
+    close(nhwc(got), want, TOL)
+    close(port.running_mean, mut["batch_stats"]["bn"]["mean"], TOL)
+    close(port.running_var, mut["batch_stats"]["bn"]["var"], TOL)
+    torch_rule = torch.nn.BatchNorm2d(shape[-1]).train()
+    torch_rule.load_state_dict(load_port(tl.BatchNorm(shape[-1]), W._bn("", ()), v).state_dict())
+    with torch.no_grad():
+        torch_rule(nchw(x))
+    assert not torch.allclose(torch_rule.running_var, port.running_var)  # the known deviation
+
+
+def test_drop_path_with_a_given_mask_and_drawn_masks():
+    x = _x((4, 6, 8), 12)
+    mask = np.array([1 / 0.9, 0.0, 1 / 0.9, 0.0], np.float32)
+    want = jl.DropPath(0.1).apply({}, jnp.asarray(x), deterministic=False, mask=jnp.asarray(mask))
+    dp = tl.DropPath(0.1).train()
+    close(dp(t(x), t(mask)), want, TOL)
+    np.testing.assert_array_equal(dp.eval()(t(x)).numpy(), x)  # identity outside training
+    draws = tl.make_drop_path_mask(torch.Generator().manual_seed(0), 20000, 0.1)
+    assert set(np.unique(draws.numpy()).tolist()) == {0.0, np.float32(1 / 0.9)}
+    assert abs(float((draws > 0).float().mean()) - 0.9) < 0.01

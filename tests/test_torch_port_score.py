@@ -34,6 +34,7 @@ from zeroshape_tpu_torch.ops import marching_cubes as tmc
 from zeroshape_tpu_torch.runtime import shape_engine
 
 from test_torch_harness import close, np32, t
+from test_torch_harness import give_memory_back  # noqa: F401 (autouse: frees the module's memory at its end)
 
 ROT = (6, 6, 4)  # 144 rotations
 

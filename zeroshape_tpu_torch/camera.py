@@ -23,7 +23,10 @@ def valid_norm_fac(seen_points, mask, eps=0.0):
     count = mask_f.sum(dim=1, keepdim=True)
     means = (seen_points * mask_f[..., None]).sum(dim=1) / torch.clamp(count, min=1.0)
     centered = seen_points - means[:, None, :]
-    dist = torch.sqrt((centered * centered).sum(dim=-1))
+    # sqrt has an infinite gradient at 0, where an all-zero depth map lands:
+    # the double where keeps value and gradient finite (camera.py:86-89)
+    sq = (centered * centered).sum(dim=-1)
+    dist = torch.where(sq > 0, torch.sqrt(torch.where(sq > 0, sq, 1.0)), 0.0)
     dist = torch.where(mask_f > 0, dist, torch.full_like(dist, float("-inf")))
     max_dists = torch.where(count[:, 0] > 0, dist.max(dim=1).values, torch.ones_like(count[:, 0]))
     if eps:
@@ -60,6 +63,11 @@ def unproj_depth(depth, intr):
     pix = get_pixel_grid(H, W, device=depth.device)
     rays = torch.einsum("nk,bjk->bnj", pix, K_inv)
     return rays * depth.float().reshape(B, H * W, 1)
+
+
+def cam2img(X_cam, intr):
+    """Camera-frame points ``[B, N, 3]`` -> homogeneous image coordinates (camera.py:153-154)."""
+    return X_cam @ intr.transpose(-1, -2)
 
 
 # ---------------------------------------------------------------------------

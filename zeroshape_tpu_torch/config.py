@@ -1,15 +1,17 @@
-"""Attribute-dict config, the two model configurations the port ships, and
-the evaluation options.
+"""Attribute-dict config, the two model configurations the port ships, the
+evaluation options, the ``shape_gen`` training recipe, and the CLI options.
 
-Counterpart of ``zeroshape_tpu/config.py`` (the ``Config`` tree) and of the
-option builders in ``__graft_entry__.py`` (``_full_opt``, ``_tiny_opt``). The
-YAML loader with ``_parent_`` inheritance lives in the demo CLI only, so that
-nothing on the reconstruction path needs PyYAML.
+Counterpart of ``zeroshape_tpu/config.py`` (the ``Config`` tree, the YAML
+loader with ``_parent_`` inheritance and dotted CLI overrides) and of the
+option builders in ``__graft_entry__.py`` (``_full_opt``, ``_tiny_opt``).
+PyYAML is imported only to read a YAML file; CLI values are parsed without
+it, so the CLIs run where PyYAML is absent.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 
 import numpy as np
 
@@ -140,3 +142,97 @@ def synthetic_image(H, seed=0, B=1):
         rgbs.append(np.clip(rgb, 0.0, 1.0))
         masks.append(m[..., None])
     return np.stack(rgbs).astype(np.float32), np.stack(masks).astype(np.float32)
+
+
+def shape_gen_opt(H=224):
+    """``full_opt`` under the recipe of ``options/shape_gen.yaml`` over
+    ``options/shape.yaml``, for the analytic data the repo makes in memory:
+    batch 8, 4096 SDF points, loss weights shape 1 / depth 1 / intr 10,
+    lr = lr_ft = 1e-4, weight decay 0.05, the depth head initialised at
+    0.001, validation at vox 128, batch 1, without brute force."""
+    return override_options(eval_opt(full_opt(H), batch_size=1, vox_res=128, brute_force=False), {
+        "name": "shape_gen",
+        "batch_size": 8,
+        "max_epoch": 200,
+        "seed": 0,
+        "resume": False,
+        "debug": False,
+        "arch": {"dtype": "auto", "depth": {"head_init_scale": 0.001}},
+        "training": {"n_sdf_points": 4096},
+        "loss_weight": {"shape": 1, "depth": 1, "intr": 10},
+        "optim": {"lr": 1e-4, "lr_ft": 1e-4},
+        "data": {"dataset_train": "synthetic", "synthetic": {"subset": "analytic"}},
+        "tb": {"num_images": [4, 8]},
+        "freq": {"print": 200, "print_eval": 20, "scalar": 500, "vis": 5000, "save_vis": 20000,
+                 "ckpt_latest": 500, "eval": 50},
+    })
+
+
+# ---------------------------------------------------------------------------
+# Options from YAML files and the command line (zeroshape_tpu/config.py:84-149)
+# ---------------------------------------------------------------------------
+
+def parse_value(text):
+    """A CLI value: ``true`` / ``false``, ``null`` / ``~``, an int, a float
+    (``1.e-4``), a ``[a, b]`` list of values, else the string."""
+    t = text.strip()
+    low = t.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("null", "~", ""):
+        return None
+    if t.startswith("[") and t.endswith("]"):
+        return [parse_value(x) for x in t[1:-1].split(",")] if t[1:-1].strip() else []
+    for cast in (int, float):
+        try:
+            return cast(t)
+        except ValueError:
+            pass
+    return t.strip("'\"")
+
+
+def parse_arguments(args):
+    """``--a.b=value`` -> nested Config; ``--flag`` is True, ``--flag!`` False."""
+    opt_cmd = {}
+    for arg in args:
+        if not arg.startswith("--"):
+            raise ValueError(f"argument must start with '--': {arg!r}")
+        if "=" not in arg[2:]:
+            key_str, value = (arg[2:-1], "false") if arg.endswith("!") else (arg[2:], "true")
+        else:
+            key_str, value = arg[2:].split("=", 1)
+        keys = key_str.split(".")
+        sub = opt_cmd
+        for k in keys[:-1]:
+            sub = sub.setdefault(k, {})
+        if keys[-1] in sub:
+            raise ValueError(f"duplicate CLI key: {key_str}")
+        sub[keys[-1]] = parse_value(value)
+    return Config(opt_cmd)
+
+
+def override_options(opt, opt_over):
+    """``opt`` with the nested values of ``opt_over`` set over it (in place)."""
+    for key, value in opt_over.items():
+        if isinstance(value, dict):
+            sub = opt.get(key)
+            opt[key] = override_options(sub if isinstance(sub, Config) else Config(), value)
+        else:
+            opt[key] = value
+    return opt
+
+
+def load_options(fname):
+    """Load a YAML file, resolving ``_parent_`` bases (relative to the file or the cwd)."""
+    import yaml
+
+    with open(fname) as f:
+        opt = Config(yaml.safe_load(f))
+    parents = opt.pop("_parent_", None)
+    if parents:
+        base = Config()
+        for parent in [parents] if isinstance(parents, str) else parents:
+            cand = parent if os.path.isfile(parent) else os.path.join(os.path.dirname(os.path.abspath(fname)), parent)
+            base = override_options(base, load_options(cand))
+        opt = override_options(base, opt)
+    return opt

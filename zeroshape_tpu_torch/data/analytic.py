@@ -5,7 +5,9 @@ primitives, ``make_sdf``, ``_normals``, ``look_at_pose``, ``render_scene``,
 ``surface_points``, ``sdf_samples``, ``_camera_ring``) and of
 ``data/common.py:pose_from_Rt``. :func:`eval_samples` gives the samples
 that ``generate_dataset`` followed by ``SyntheticDataset(split="test")``
-would load, without PIL and without writing files.
+would load, and :func:`train_samples` the training split with its loader
+order and per-epoch SDF subsets (``SyntheticDataset(split="train")`` and
+``data/base.py:DataLoader``), without PIL and without writing files.
 
 Conventions: the object is centred at the origin with radius <= ~0.5; the
 camera is OpenCV-style (x right, y down, z forward) and ``pose`` is the
@@ -180,6 +182,95 @@ def pose_from_Rt(Rt):
     return pose
 
 
+def _intrinsics(H, focal):
+    f = focal * H
+    return np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+
+
+def _view(rgb, depth, pose):
+    """One rendered view as the loader reads it back: the RGB through the
+    uint8 round trip of the PNG, ``mask = depth != 0``."""
+    return {
+        "pose_gt": pose_from_Rt(pose),
+        "rgb_input_map": (rgb * 255).astype(np.uint8).astype(np.float32) / 255.0,
+        "mask_input_map": (depth != 0).astype(np.float32)[..., None],
+        "depth_input_map": depth.astype(np.float32)[..., None],
+    }
+
+
+class TrainSet:
+    """An analytic training split in memory, read as the JAX loader reads it.
+
+    ``views`` hold each training view's images, depth, intrinsics, pose and
+    object; ``objects`` each object's SDF samples (the stored values minus
+    the loader's 0.003, ``data/synthetic.py:179-182``); ``val`` the
+    validation samples in :func:`eval_samples`'s layout; ``label2cat``
+    the one category, ``"prim"``.
+    """
+
+    label2cat = ["prim"]
+
+    def __init__(self, views, objects, val):
+        self.views, self.objects, self.val = views, objects, val
+
+    def __len__(self):
+        return len(self.views)
+
+    def sample(self, idx, epoch, seed=0, n_sdf_points=None):
+        """Training sample ``idx`` in ``epoch`` (``synthetic.py:185-221``):
+        its ``n_sdf_points`` SDF samples drawn by ``default_rng((seed, idx,
+        epoch))``, ``seed`` being the run's ``opt.seed``."""
+        view = self.views[idx]
+        pts, sdf = self.objects[view["object"]]
+        if n_sdf_points:
+            sel = np.random.default_rng((seed, idx, epoch)).permutation(pts.shape[0])[:n_sdf_points]
+            pts, sdf = pts[sel], sdf[sel]
+        out = {k: v for k, v in view.items() if k != "object"}
+        return dict(out, idx=np.int64(idx), category_label=np.int64(0), gt_sample_points=pts, gt_sample_sdf=sdf)
+
+    def batch_order(self, epoch, batch_size, seed=0):
+        """The loader's batches of one epoch (``data/base.py:110-126``): indices
+        shuffled by ``default_rng(seed * 100003 + epoch)``, the short tail dropped."""
+        order = np.arange(len(self))
+        np.random.default_rng(seed * 100003 + epoch).shuffle(order)
+        return [order[i : i + batch_size] for i in range(0, len(order) - batch_size + 1, batch_size)]
+
+    def batch(self, indices, epoch, seed=0, n_sdf_points=None):
+        """The samples ``indices`` stacked into one batch of numpy arrays."""
+        samples = [self.sample(int(i), epoch, seed, n_sdf_points) for i in indices]
+        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+def train_samples(n_objects=5, n_views=8, H=224, seed=0, n_pc_points=10000, n_sdf_points=20000, val_views=1,
+                  focal=1.3875):
+    """The training and validation splits of an analytic dataset, as the loader would give them.
+
+    Walks the generator of ``generate_dataset(root, n_objects, n_views, H,
+    seed, n_pc_points=..., n_sdf_points=..., val_views=...)`` with the same
+    rng draws and renders every view: the first ``n_views - val_views`` of
+    each object are training views (``SyntheticDataset(split="train")``),
+    the rest validation samples (``split="test"``, at most 10). Returns a
+    :class:`TrainSet`.
+    """
+    rng = np.random.default_rng(seed)
+    K = _intrinsics(H, focal)
+    views, objects, val = [], [], []
+    for o in range(n_objects):
+        sdf, albedo = make_sdf(SDF_KINDS[o % len(SDF_KINDS)], rng)
+        pc = surface_points(sdf, n_pc_points, rng)
+        pts, vals = sdf_samples(sdf, n_sdf_points, rng)
+        objects.append((pts, vals - 0.003))
+        for v, cam in enumerate(_camera_ring(n_views, rng)):
+            pose = look_at_pose(cam)
+            rgb, depth, _ = render_scene(sdf, albedo, K, pose, H, H)
+            view = dict(_view(rgb, depth, pose), intr=K)
+            if v < n_views - val_views:
+                views.append(dict(view, object=o))
+            elif len(val) < VAL_CAP:
+                val.append(dict(view, idx=np.int64(len(val)), category_label=np.int64(0), dpc={"points": pc}))
+    return TrainSet(views, objects, val)
+
+
 def eval_samples(n_objects=2, n_views=2, H=224, seed=0, n_pc_points=10000, n_sdf_points=20000, focal=1.3875):
     """The test split of an analytic dataset, as the loader would give it.
 
@@ -193,8 +284,7 @@ def eval_samples(n_objects=2, n_views=2, H=224, seed=0, n_pc_points=10000, n_sdf
     (0, category ``"prim"``).
     """
     rng = np.random.default_rng(seed)
-    f = focal * H
-    K = np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    K = _intrinsics(H, focal)
     samples = []
     for o in range(min(n_objects, VAL_CAP)):
         sdf, albedo = make_sdf(SDF_KINDS[o % len(SDF_KINDS)], rng)
@@ -202,12 +292,6 @@ def eval_samples(n_objects=2, n_views=2, H=224, seed=0, n_pc_points=10000, n_sdf
         sdf_samples(sdf, n_sdf_points, rng)  # the writer's draws, to keep the stream
         pose = look_at_pose(_camera_ring(n_views, rng)[-1])
         rgb, depth, _ = render_scene(sdf, albedo, K, pose, H, H)
-        samples.append({
-            "idx": np.int64(len(samples)),
-            "category_label": np.int64(0),
-            "pose_gt": pose_from_Rt(pose),
-            "rgb_input_map": (rgb * 255).astype(np.uint8).astype(np.float32) / 255.0,
-            "mask_input_map": (depth != 0).astype(np.float32)[..., None],
-            "dpc": {"points": pc},
-        })
+        view = {k: v for k, v in _view(rgb, depth, pose).items() if k != "depth_input_map"}
+        samples.append(dict(view, idx=np.int64(len(samples)), category_label=np.int64(0), dpc={"points": pc}))
     return samples

@@ -11,8 +11,8 @@ kernel on CUDA). The mesh goes to ``<datadir>/preds/<name>_mesh.ply``.
 
 Without ``--ckpt`` the weights are seeded random and the logits sharpened
 x25 (the benchmark's proxy for a trained field). The attention GIFs of the
-JAX demo (``eval.dump_attn``) are not ported yet. PIL and PyYAML are
-imported here only.
+JAX demo (``eval.dump_attn``) are not ported yet. PIL is imported here
+only, PyYAML only to read the ``--yaml`` file.
 """
 
 from __future__ import annotations
@@ -25,61 +25,9 @@ import time
 import numpy as np
 import torch
 
-from zeroshape_tpu_torch import config, recon, weights
+from zeroshape_tpu_torch import recon, weights
+from zeroshape_tpu_torch.config import load_options, override_options, parse_arguments
 from zeroshape_tpu_torch.ops.marching_cubes import marching_cubes_mesh, write_ply_mesh
-
-
-# ---------------------------------------------------------------------------
-# Options: YAML with ``_parent_`` inheritance + dotted CLI overrides
-# (a copy of zeroshape_tpu/config.py:84-149)
-# ---------------------------------------------------------------------------
-
-def parse_arguments(args):
-    """``--a.b=value`` -> nested Config; ``--flag`` is True, ``--flag!`` False."""
-    import yaml
-
-    opt_cmd = {}
-    for arg in args:
-        if not arg.startswith("--"):
-            raise ValueError(f"argument must start with '--': {arg!r}")
-        if "=" not in arg[2:]:
-            key_str, value = (arg[2:-1], "false") if arg.endswith("!") else (arg[2:], "true")
-        else:
-            key_str, value = arg[2:].split("=", 1)
-        keys = key_str.split(".")
-        sub = opt_cmd
-        for k in keys[:-1]:
-            sub = sub.setdefault(k, {})
-        if keys[-1] in sub:
-            raise ValueError(f"duplicate CLI key: {key_str}")
-        sub[keys[-1]] = yaml.safe_load(value)
-    return config.Config(opt_cmd)
-
-
-def override_options(opt, opt_over):
-    for key, value in opt_over.items():
-        if isinstance(value, dict):
-            sub = opt.get(key)
-            opt[key] = override_options(sub if isinstance(sub, config.Config) else config.Config(), value)
-        else:
-            opt[key] = value
-    return opt
-
-
-def load_options(fname):
-    """Load a YAML file, resolving ``_parent_`` bases (relative to the file or the cwd)."""
-    import yaml
-
-    with open(fname) as f:
-        opt = config.Config(yaml.safe_load(f))
-    parents = opt.pop("_parent_", None)
-    if parents:
-        base = config.Config()
-        for parent in [parents] if isinstance(parents, str) else parents:
-            cand = parent if os.path.isfile(parent) else os.path.join(os.path.dirname(os.path.abspath(fname)), parent)
-            base = override_options(base, load_options(cand))
-        opt = override_options(base, opt)
-    return opt
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,21 @@
-"""Shape reconstruction graph, encoder half (counterpart of ``models/graph_shape.py``).
+"""Shape reconstruction graph (counterpart of ``models/graph_shape.py``).
 
 DPT depth + intrinsics head -> unproject and unit-sphere normalise -> coordinate
-encoder -> latent tokens; the implicit decoder is held alongside
-(``impl_network``). Ported for the shipped configuration: the ResNet
-coordinate encoder and no RGB encoder. Submodules carry the reference names
+encoder -> latent tokens -> implicit decoder on the GT-normalised SDF samples
+(the training forward), with the loss terms (:func:`compute_loss`) and the
+attention statistics (:func:`attn_geo_stats`). Inference decodes through
+``recon``. Ported for the shipped configuration: the ResNet coordinate
+encoder and no RGB encoder. Submodules carry the reference names
 (``dpt_depth``, ``intr_head``, ``intr_proj``, ``coord_encoder``,
 ``impl_network``), so a reference ``.ckpt`` state dict loads as is.
 
 Batch layout at the boundary (NHWC, as the JAX package):
-  rgb_input_map [B, H, W, 3] in [0, 1], mask_input_map [B, H, W, 1].
+  rgb_input_map [B, H, W, 3] in [0, 1], mask_input_map [B, H, W, 1]; for
+  supervision also depth_input_map [B, H, W, 1], intr [B, 3, 3],
+  pose_gt [B, 3, 4], gt_sample_points [B, N, 3], gt_sample_sdf [B, N].
+
+BatchNorm follows the module's mode, as the JAX modules follow ``train``:
+batch statistics after ``.train()``, running statistics after ``.eval()``.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from zeroshape_tpu_torch import camera
+from zeroshape_tpu_torch import camera, losses
 from zeroshape_tpu_torch.models import compute_autocast, fp32_region
 from zeroshape_tpu_torch.models.coord_enc import CoordEncRes
 from zeroshape_tpu_torch.models.dpt import DPTDepthModel
@@ -64,7 +71,7 @@ class IntrHead(nn.Sequential):
 
 
 class ShapeGraph(nn.Module):
-    """Single-image shape reconstruction model (inference)."""
+    """Single-image shape reconstruction model."""
 
     def __init__(
         self,
@@ -151,3 +158,109 @@ class ShapeGraph(nn.Module):
         with compute_autocast(dev, self.dtype):
             out["latent_depth"] = self.coord_encoder(seen_dsp, mask_dsp)
         return out
+
+    def gt_supervision(self, batch):
+        """GT-normalised camera-frame SDF sample points, without gradient
+        (graph_shape.py:216-246). The 100 samples nearest the surface are the
+        top 100 of ``-|sdf|``, ties to the lower index as in ``lax.top_k``."""
+        mask = batch["mask_input_map"]
+        B = mask.shape[0]
+        with torch.no_grad(), fp32_region(mask.device):
+            validity = (mask > 0.5).reshape(B, -1).float()
+            seen_gt = camera.unproj_depth(batch["depth_input_map"][..., 0], batch["intr"])
+            seen_gt_norm, mean_gt, scale_gt = camera.normalize_seen_points(seen_gt, validity)
+            pose = batch["pose_gt"]
+            pts_cam = torch.einsum("bij,bnj->bni", pose[..., :3], batch["gt_sample_points"]) + pose[:, None, :, 3]
+            gt_points_cam = (pts_cam - mean_gt[:, None, :]) / scale_gt[:, None, None]
+            sdf = batch["gt_sample_sdf"]
+            order = torch.sort(-sdf.abs(), dim=1, descending=True, stable=True).indices[:, : min(100, sdf.shape[1])]
+            gt_surf_points = torch.gather(gt_points_cam, 1, order[..., None].expand(-1, -1, 3))
+        return {
+            "seen_points_gt": seen_gt_norm,
+            "gt_points_cam": gt_points_cam,
+            "gt_surf_points": gt_surf_points,
+            "gt_norm_mean": mean_gt,
+            "gt_norm_scale": scale_gt,
+        }
+
+    def forward(self, batch, train=False, with_supervision=None, generator=None, dp_masks=None):
+        """Full forward (graph_shape.py:248-263): ``encode_image``, then, with
+        supervision (default: when the batch has SDF samples), the decoder's
+        logits ``pred_sample_occ [B, N]`` and attention ``attn [B, N, L]``
+        at the GT-normalised sample points. ``train`` must match the module's
+        mode; it turns on the decoder's stochastic depth, from ``dp_masks``
+        or drawn from ``generator``."""
+        if train != self.training:
+            raise ValueError(f"forward(train={train}) on a module in {'train' if self.training else 'eval'} mode")
+        out = self.encode_image(batch)
+        if with_supervision is None:
+            with_supervision = "gt_sample_points" in batch and "gt_sample_sdf" in batch
+        if with_supervision:
+            out.update(self.gt_supervision(batch))
+            out["pred_sample_occ"], out["attn"] = self.impl_network(
+                out["latent_depth"], out["gt_points_cam"], train, generator, dp_masks
+            )
+        return out
+
+
+def compute_loss(opt, batch, out, training=False):
+    """Unweighted loss terms (graph_shape.py:266-293): depth whenever it has
+    a weight, intrinsics and shape in training."""
+    loss = {}
+    lw, tr = opt.loss_weight, opt.training
+    with fp32_region(out["depth_pred"].device):
+        if lw.get("depth") is not None:
+            dl = tr.depth_loss
+            loss["depth"] = losses.depth_loss(
+                out["depth_pred"].permute(0, 3, 1, 2),
+                batch["depth_input_map"].permute(0, 3, 1, 2),
+                batch["mask_input_map"].permute(0, 3, 1, 2),
+                grad_reg=dl.grad_reg, depth_inv=dl.depth_inv, mask_shrink=dl.mask_shrink,
+            )
+        if lw.get("intr") is not None and training:
+            loss["intr"] = losses.intr_loss(out["seen_points"], out["seen_points_gt"], out["validity_mask"])
+        if lw.get("shape") is not None and training:
+            sl = tr.shape_loss
+            loss["shape"] = losses.shape_loss(
+                out["pred_sample_occ"], batch["gt_sample_sdf"], impt_thres=sl.impt_thres, impt_weight=sl.impt_weight
+            )
+    return loss
+
+
+@torch.no_grad()
+def attn_geo_stats(opt, batch, out, depth_eps=0.05):
+    """The mean attention mass that query points place on the geometry
+    tokens, over all SDF queries (``attn_geo_avg``) and split into queries
+    near the visible surface (``seen``), occupied and unseen (``occl``) and
+    unoccupied (``bg``) (graph_shape.py:296-353). ``{}`` without an
+    attention map."""
+    if "attn" not in out:
+        return {}
+    geo_mass = out["attn"].float().sum(dim=-1)  # [B, N]
+    occupied = batch["gt_sample_sdf"] < 0
+    pts = out["gt_points_cam"] * out["gt_norm_scale"][:, None, None] + out["gt_norm_mean"][:, None, :]
+    uv = camera.cam2img(pts, batch["intr"].float())
+    z = pts[..., 2]
+    u = uv[..., 0] / torch.clamp(uv[..., 2], min=1e-8)
+    v = uv[..., 1] / torch.clamp(uv[..., 2], min=1e-8)
+    H, W = batch["depth_input_map"].shape[1:3]
+    ui = torch.clamp(torch.round(u).to(torch.int64), 0, W - 1)
+    vi = torch.clamp(torch.round(v).to(torch.int64), 0, H - 1)
+    in_bounds = (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1) & (z > 0)
+
+    def gather_map(m):  # [B, H, W, 1] -> [B, N]
+        return torch.gather(m[..., 0].float().reshape(m.shape[0], -1), 1, vi * W + ui)
+
+    seen = in_bounds & (gather_map(batch["mask_input_map"]) > 0.5)
+    seen &= (z - gather_map(batch["depth_input_map"])).abs() < depth_eps
+
+    def masked_mean(m):
+        cnt = m.sum()
+        return torch.where(cnt > 0, (geo_mass * m).sum() / torch.clamp(cnt, min=1), 0.0)
+
+    return {
+        "attn_geo_avg": geo_mass.mean(),
+        "attn_geo_seen": masked_mean(seen.float()),
+        "attn_geo_occl": masked_mean((occupied & ~seen).float()),
+        "attn_geo_bg": masked_mean((~occupied).float()),
+    }

@@ -1,11 +1,13 @@
-"""Implicit occupancy decoder with masked joint attention (inference).
+"""Implicit occupancy decoder with masked joint attention.
 
-Counterpart of ``zeroshape_tpu/models/implicit.py:44-254``. Information
+Counterpart of ``zeroshape_tpu/models/implicit.py:44-259``. Information
 flows one way in the reference's joint sequence (latents -> points), so the
 latent trunk runs once: :meth:`Implicit.encode` returns each block's latent
 K/V cache, and :meth:`Implicit.decode` scores any number of query points
 against the caches. Each point attends to the cached latent keys plus its
-own key in one joint softmax.
+own key in one joint softmax. In training (:meth:`Implicit.forward`)
+both streams take stochastic depth, one keep mask per block shared by the
+latent and point streams of a sample.
 
 :meth:`Implicit.decode` is the plain version of the fused decoder kernel
 (``ops/implicit_kernel.py``): the CPU runs it, and the kernel is held to it.
@@ -22,13 +24,21 @@ import torch
 import torch.nn as nn
 
 from zeroshape_tpu_torch.models import compute_autocast
-from zeroshape_tpu_torch.models.layers import Mlp, get_2d_sincos_pos_embed, softplus_beta, split_heads
+from zeroshape_tpu_torch.models.layers import (
+    DropPath,
+    Mlp,
+    get_2d_sincos_pos_embed,
+    make_drop_path_mask,
+    softplus_beta,
+    split_heads,
+)
 
 
 class ImplicitBlock(nn.Module):
     """One pre-norm block over the (latents | points) masked joint sequence."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, last_layer: bool = False):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, drop_path: float = 0.1,
+                 last_layer: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
@@ -39,9 +49,11 @@ class ImplicitBlock(nn.Module):
         self.attn.proj = nn.Linear(dim, dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.dp = DropPath(drop_path)
 
-    def latent_step(self, h):
-        """Latent self-attention update; returns (h_new, (k, v) [B, H, L, hd])."""
+    def latent_step(self, h, dp_mask=None):
+        """Latent self-attention update; returns (h_new, (k, v) [B, H, L, hd]).
+        ``dp_mask`` is the block's stochastic-depth mask (training only)."""
         q, k, v = split_heads(self.attn.qkv(self.norm1(h)), self.num_heads)
         if self.last_layer:
             # the last block only produces point outputs; the latent state is
@@ -49,10 +61,10 @@ class ImplicitBlock(nn.Module):
             return h, (k, v)
         attn = ((q @ k.transpose(-2, -1)) * self.scale).float().softmax(dim=-1).to(v.dtype)
         out = (attn @ v).transpose(1, 2).reshape(h.shape)
-        h = h + self.attn.proj(out)
-        return h + self.mlp(self.norm2(h)), (k, v)
+        h = h + self.dp(self.attn.proj(out), dp_mask)
+        return h + self.dp(self.mlp(self.norm2(h)), dp_mask), (k, v)
 
-    def point_step(self, p, cache):
+    def point_step(self, p, cache, dp_mask=None):
         """Cross-attention to the cached latents plus the point's self term.
 
         Returns (p_new, attn_vis [B, P, L]): the head mean of the normalised
@@ -65,8 +77,8 @@ class ImplicitBlock(nn.Module):
         joint = torch.cat([cross, self_s], dim=-1).float().softmax(dim=-1).to(vh.dtype)
         out = joint[..., :-1] @ vh + joint[..., -1:] * vp
         attn_vis = joint[..., :-1].float().mean(dim=1)
-        p = p + self.attn.proj(out.transpose(1, 2).reshape(p.shape))
-        return p + self.mlp(self.norm2(p)), attn_vis
+        p = p + self.dp(self.attn.proj(out.transpose(1, 2).reshape(p.shape)), dp_mask)
+        return p + self.dp(self.mlp(self.norm2(p)), dp_mask), attn_vis
 
 
 class MLPBlocks(nn.Module):
@@ -104,6 +116,7 @@ class Implicit(nn.Module):
     ``dtype`` is the compute dtype (bf16 runs under autocast); parameters
     stay fp32. Only the shipped decoder options are ported: no 3D positional
     encoding, no semantic stream, the skip MLP head, pos-embed on block 0.
+    ``drop_path`` is the stochastic-depth rate of training (implicit.py:168).
     """
 
     def __init__(
@@ -116,10 +129,12 @@ class Implicit(nn.Module):
         num_heads=8,
         mlp_ratio=4.0,
         skip_in=(2, 4, 6),
+        drop_path=0.1,
         dtype=torch.float32,
     ):
         super().__init__()
         self.dtype = dtype
+        self.drop_path = drop_path
         self.num_heads = num_heads
         self.point_proj = nn.Module()
         self.point_proj.proj = nn.Linear(3, n_channels)
@@ -127,31 +142,51 @@ class Implicit(nn.Module):
         pe = get_2d_sincos_pos_embed(n_channels, int(num_patches**0.5), cls_token=True)
         self.register_buffer("pos_embed", torch.from_numpy(pe)[None])
         self.blocks_attn = nn.ModuleList(
-            ImplicitBlock(n_channels, num_heads, mlp_ratio, last_layer=(i == n_blocks_attn - 1))
+            ImplicitBlock(n_channels, num_heads, mlp_ratio, drop_path, last_layer=(i == n_blocks_attn - 1))
             for i in range(n_blocks_attn)
         )
         self.norm = nn.LayerNorm(n_channels, eps=1e-6)
         self.impl_mlp = MLPBlocks(n_layers_mlp, n_channels, skip_in)
 
-    def encode(self, latent_depth):
+    def dp_masks(self, batch, generator=None, device=None):
+        """One stochastic-depth mask per block, shared by the latent and point
+        streams of a sample (implicit.py:211-221); Nones outside training."""
+        if not self.training or self.drop_path == 0.0:
+            return [None] * len(self.blocks_attn)
+        return [make_drop_path_mask(generator, batch, self.drop_path, device) for _ in self.blocks_attn]
+
+    def encode(self, latent_depth, dp_masks=None):
         """Run the latent trunk once; returns the per-block (k, v) caches."""
+        dp_masks = dp_masks or [None] * len(self.blocks_attn)
         with compute_autocast(latent_depth.device, self.dtype):
             h = self.latent_proj(latent_depth)
             caches = []
-            for l, blk in enumerate(self.blocks_attn):
+            for l, (blk, m) in enumerate(zip(self.blocks_attn, dp_masks)):
                 if l == 0:
                     h = h + self.pos_embed.to(h.dtype)
-                h, cache = blk.latent_step(h)
+                h, cache = blk.latent_step(h, m)
                 caches.append(cache)
         return caches
 
-    def decode(self, caches, points_3D):
+    def decode(self, caches, points_3D, dp_masks=None):
         """Score ``points_3D [B, P, 3]`` against the caches -> (logits [B, P], attn_vis [B, P, L])."""
+        dp_masks = dp_masks or [None] * len(self.blocks_attn)
         with compute_autocast(points_3D.device, self.dtype):
             p = self.point_proj.proj(points_3D)
             attn_vis = []
-            for blk, cache in zip(self.blocks_attn, caches):
-                p, attn = blk.point_step(p, cache)
+            for blk, cache, m in zip(self.blocks_attn, caches, dp_masks):
+                p, attn = blk.point_step(p, cache, m)
                 attn_vis.append(attn)
             occ = self.impl_mlp(points_3D, self.norm(p))
         return occ[..., 0].float(), torch.stack(attn_vis, dim=-1).mean(dim=-1)
+
+    def forward(self, latent_depth, points_3D, train=False, generator=None, dp_masks=None):
+        """The training forward (implicit.py:256-259): latent trunk then the
+        plain decode, with autograd; stochastic depth under ``train``, from
+        ``dp_masks`` if given, else drawn from ``generator``. Never the
+        fused kernel, which has no backward."""
+        if train != self.training:
+            raise ValueError(f"forward(train={train}) on a module in {'train' if self.training else 'eval'} mode")
+        if dp_masks is None:
+            dp_masks = self.dp_masks(points_3D.shape[0], generator, points_3D.device)
+        return self.decode(self.encode(latent_depth, dp_masks), points_3D, dp_masks)

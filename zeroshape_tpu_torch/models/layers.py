@@ -1,8 +1,8 @@
 """Shared building blocks (counterpart of ``zeroshape_tpu/models/layers.py``).
 
 ViT blocks, conv-BN residual bottlenecks, weight-standardised convs with
-TF-SAME padding (the ResNetV2 hybrid stem) and the sin-cos positional
-embedding. Modules are NCHW inside; submodule names follow the reference
+TF-SAME padding (the ResNetV2 hybrid stem), stochastic depth and the sin-cos
+positional embedding. Modules are NCHW inside; submodule names follow the reference
 torch state-dict layout so released checkpoints load without renaming.
 """
 
@@ -48,6 +48,29 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int, cls_token: bool = Fa
 def gelu_exact(x):
     """torch ``nn.GELU`` (exact erf form), as the reference trains with."""
     return F.gelu(x)
+
+
+def make_drop_path_mask(generator, batch: int, rate: float, device=None):
+    """Per-sample stochastic-depth keep mask ``[batch]``, pre-scaled by
+    ``1 / keep`` (layers.py:81-85), drawn from ``generator``."""
+    keep = 1.0 - rate
+    draw = torch.rand(batch, generator=generator, device=device)
+    return (draw < keep).float() / keep
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm DropPath semantics, layers.py:88-100):
+    ``x`` times a ``[B]`` keep mask from :func:`make_drop_path_mask`. Identity
+    without a mask, with rate 0, or outside training."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, mask=None):
+        if mask is None or self.rate == 0.0 or not self.training:
+            return x
+        return x * mask.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
 
 
 def softplus_beta(x, beta: float = 100.0):
@@ -157,9 +180,31 @@ def max_pool_same(x, kernel: int = 3, stride: int = 2):
 # Conv-BN bottleneck (layers.py:251-295)
 # ---------------------------------------------------------------------------
 
-def BatchNorm(channels: int) -> nn.BatchNorm2d:
-    """BatchNorm2d with torch defaults (eps 1e-5); the port runs it in eval."""
-    return nn.BatchNorm2d(channels, eps=1e-5)
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d (eps 1e-5, momentum 0.1) with the running-statistics rule
+    of the JAX package (flax ``BatchNorm(momentum=0.9)``, layers.py:251-268).
+
+    In eval it is ``nn.BatchNorm2d``. In training it normalises with the
+    batch statistics, as torch does, but updates ``running_var`` with the
+    *biased* batch variance, as flax does; ``nn.BatchNorm2d`` would use the
+    unbiased one (a known deviation from the torch reference). The batch is
+    reduced once: the running statistics move from the mean and inverse
+    standard deviation that the normalisation saved (biased variance =
+    invstd^-2 - eps).
+    """
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(invstd.pow(-2).sub_(self.eps), self.momentum)
+            self.num_batches_tracked.add_(1)
+        return out
 
 
 class BottleneckConv(nn.Module):

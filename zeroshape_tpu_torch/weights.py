@@ -221,9 +221,14 @@ def load(module, state_dict):
 # ---------------------------------------------------------------------------
 
 def _lecun_normal_(w, g, scale=1.0):
-    """flax variance_scaling(scale, fan_in, truncated_normal)."""
+    """flax variance_scaling(scale, fan_in, truncated_normal), drawn by the
+    inverse CDF on [-2 std, 2 std]: one uniform draw an element, so a seed
+    gives the same weights under every torch version (``nn.init.
+    trunc_normal_`` changed its algorithm, and so its draws, between them)."""
     std = math.sqrt(scale / w[0].numel()) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
+    lo, hi = ((1.0 + math.erf(x / math.sqrt(2.0))) / 2.0 for x in (-2.0, 2.0))  # the normal CDF at -+2
+    w.uniform_(2 * lo - 1, 2 * hi - 1, generator=g).erfinv_().mul_(std * math.sqrt(2.0))
+    w.clamp_(min=-2 * std, max=2 * std)
 
 
 def init_like_flax(model, seed=0):
