@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
 against its plain version, run the full-size main path and export a mesh,
-then run the scoring and evaluation path at full size.
+run the scoring and evaluation path at full size, then shape training, the
+accuracy gate, depth pretraining and its staging into shape training.
 
     python3 chip_smoke.py
 
@@ -71,13 +72,34 @@ Phases (one line or more each, any failure exits non-zero):
      losses must average below the first 5; one fp32 step at tiny width on
      the card and on the CPU (TF32 off, the same weights, batch and
      stochastic-depth masks): updated parameters within 1e-4; a checkpoint
-     written, read back into a fresh graph and optimizer, the same state.
+     written, read back into a fresh graph and optimizer, the same state;
+ 12. the accuracy gate (tests/test_accuracy_gate.py) through
+     ``shape_engine.train`` with ``config.accuracy_gate_opt()``: 24 epochs of
+     2 steps at 64^2 from random weights, bf16; its decoder (C=64) is not
+     K1's, so its two validations decode plainly (counted) and score through
+     K2; the best CD must be below 0.11;
+ 13. depth pretraining (``runtime/depth_engine.train``, the ``depth_gen``
+     recipe at full width, bf16, batch 8) on phase 11's data: 2 epochs of 3
+     steps, validation before the first step and after epoch 2, then the
+     final metrics written to ``best_val.txt``; s/step, samples/s, peak
+     memory, losses and every depth metric; no K1/K2/K3 launch;
+ 14. 20 depth steps on one fixed batch of 8, continuing the run's optimizer:
+     the last 5 losses must average below 0.9x the first 5;
+ 15. one fp32 depth step at H=64 on the card and on the CPU (TF32 off, the
+     same weights and batch), held to ``step_disagreements``;
+ 16. a ``shape_gen`` run staged from the depth run's ``best.ckpt``
+     (``pretrain.depth``): before its first step the DPT and intrinsics head
+     equal the checkpoint's bit for bit and the rest ``init_like_flax``'s;
+     1 epoch of 3 steps whose validations launch K1 and K2, nothing plain;
+ 17. ``--load`` of that run's ``latest.ckpt`` into a fresh run: its first
+     step starts from those weights with an optimizer that took no step.
 Then one JSON line of kernel numbers, the nvidia-smi line again, and the
 result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -400,17 +422,62 @@ def check_k3(x1, x2, what):
 
 
 def launch_counts():
+    """The kernels' launch counts and the plain decodes of decoders K1 is not built for."""
     from zeroshape_tpu_torch.ops.chamfer import nn_min_squared_fast, nn_one_way
     from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode
+    from zeroshape_tpu_torch.recon import decode_points
 
-    return {"K1": fused_decode.launches, "K2": nn_one_way.launches, "K3": nn_min_squared_fast.launches}
+    return {"K1": fused_decode.launches, "K2": nn_one_way.launches, "K3": nn_min_squared_fast.launches,
+            "plain": decode_points.plain_decodes}
 
 
 def reset_counts():
     from zeroshape_tpu_torch.ops.chamfer import nn_min_squared_fast, nn_one_way
     from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode
+    from zeroshape_tpu_torch.recon import decode_points
 
-    fused_decode.launches = nn_one_way.launches = nn_min_squared_fast.launches = 0
+    fused_decode.launches = nn_one_way.launches = nn_min_squared_fast.launches = decode_points.plain_decodes = 0
+
+
+def summed(counts):
+    """The sum of a list of :func:`launch_counts` dicts."""
+    return {k: sum(n[k] for n in counts) for k in ("K1", "K2", "K3", "plain")}
+
+
+@contextlib.contextmanager
+def instrumented(engine, validation):
+    """Wrap ``parallel.train.train_step`` so that each step is timed from 0
+    launches to its sync, and ``engine``'s ``validation`` function so that its
+    launches are counted; yields the lists ``steps`` (``(seconds, counts)``)
+    and ``vals`` (counts) that the calls fill. The engines call both through
+    their modules."""
+    from zeroshape_tpu_torch.parallel import train as ptrain
+
+    steps, vals = [], []
+    step, validate = ptrain.train_step, getattr(engine, validation)
+
+    def timed_step(*args, **kwargs):
+        reset_counts()
+        t = time.perf_counter()
+        out = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t, launch_counts()))
+        return out
+
+    def counted_validation(*args, **kwargs):
+        reset_counts()
+        out = validate(*args, **kwargs)
+        torch.cuda.synchronize()
+        vals.append(launch_counts())
+        return out
+
+    ptrain.train_step = timed_step
+    setattr(engine, validation, counted_validation)
+    try:
+        yield steps, vals
+    finally:
+        ptrain.train_step = step
+        setattr(engine, validation, validate)
 
 
 def planted_rotation(dev, k=1234):
@@ -510,6 +577,7 @@ def evaluate_posture(model, samples, training):
         parse_results(tmp, res, thresholds)
     k = len(samples)
     want = {"K1": k, "K2": 288 * k, "K3": 0} if not training else {"K1": 2 * k, "K2": 6 * k, "K3": 72 * k}
+    want["plain"] = 0  # the shipped decoder decodes through K1 only
     print(f"evaluation, {name} posture ({'coarse-to-fine decode, pruned' if training else 'dense decode, exhaustive'} "
           f"search), {k} samples at batch 2: CD {res['val_metric']:.6f}, launches {n} (expected {want}); "
           f"{seconds / k:.3f} s/sample over the run, per batch {[round(x, 4) for x in res['s_per_sample']]}")
@@ -559,7 +627,6 @@ def train_run(dev):
     validations' launches summed)."""
     from zeroshape_tpu_torch import config
     from zeroshape_tpu_torch.data import analytic
-    from zeroshape_tpu_torch.parallel import train as ptrain
     from zeroshape_tpu_torch.runtime import shape_engine
 
     t0 = time.perf_counter()
@@ -568,40 +635,20 @@ def train_run(dev):
           f"{time.perf_counter() - t0:.1f} s")
     opt = config.override_options(config.shape_gen_opt(), {
         "max_epoch": 2, "tb": None, "freq": {"print": 1, "scalar": 3, "ckpt_latest": 1000, "eval": 2}})
-    steps, vals = [], []
-    step, validate = ptrain.train_step, shape_engine.validate
-
-    def timed_step(*args, **kwargs):  # each step from 0 launches to its sync
-        reset_counts()
-        t = time.perf_counter()
-        out = step(*args, **kwargs)
-        torch.cuda.synchronize()
-        steps.append((time.perf_counter() - t, launch_counts()))
-        return out
-
-    def counted_validation(*args, **kwargs):
-        reset_counts()
-        out = validate(*args, **kwargs)
-        torch.cuda.synchronize()
-        vals.append(launch_counts())
-        return out
-
-    ptrain.train_step, shape_engine.validate = timed_step, counted_validation
     out = tempfile.mkdtemp()  # checkpoints of ~2.3 GB each: removed at once
     try:
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = shape_engine.train(opt, data, out, device=dev)
-        seconds = time.perf_counter() - t0
+        with instrumented(shape_engine, "validate") as (steps, vals):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = shape_engine.train(opt, data, out, device=dev)
+            seconds = time.perf_counter() - t0
         files = sorted(os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out) for f in fs)
     finally:
-        ptrain.train_step, shape_engine.validate = step, validate
         shutil.rmtree(out)
     peak = torch.cuda.max_memory_allocated() / 2**30
     s_step = [s for s, _ in steps]
     med = float(np.median(s_step[1:6]))
-    in_steps = {k: sum(n[k] for _, n in steps) for k in ("K1", "K2", "K3")}
-    in_val = {k: sum(n[k] for n in vals) for k in ("K1", "K2", "K3")}
+    in_steps, in_val = summed([n for _, n in steps]), summed(vals)
     print(f"training (shape_gen recipe, batch {opt.batch_size}, bf16 autocast): {len(steps)} steps, median "
           f"{med:.4f} s/step over steps 2-{len(s_step)} (per step {[round(x, 4) for x in s_step]}), "
           f"{opt.batch_size / med:.2f} samples/s; peak memory {peak:.2f} GiB; the whole run {seconds:.1f} s with "
@@ -613,8 +660,9 @@ def train_run(dev):
         fail(f"training took {len(steps)} steps, losses {res['losses']}")
     if not all(np.isfinite(cd) for _, cd in res["val"]) or [ep for ep, _ in res["val"]] != [0, 2]:
         fail(f"validation {res['val']}")
-    if any(in_steps.values()) or in_val["K1"] == 0 or in_val["K2"] == 0 or in_val["K3"]:
-        fail(f"launches in the train steps {in_steps} (want none), in validation {in_val} (want K1, K2, no K3)")
+    if any(in_steps.values()) or in_val["K1"] == 0 or in_val["K2"] == 0 or in_val["K3"] or in_val["plain"]:
+        fail(f"launches in the train steps {in_steps} (want none), in validation {in_val} (want K1, K2, no K3, "
+             "no plain decode)")
     if sorted(files) != ["best.ckpt", "checkpoint/ep1.ckpt", "latest.ckpt"]:
         fail(f"checkpoint files {files}")
     return res, data, opt, in_val
@@ -690,6 +738,16 @@ def tiny_step_case(seed=2):
     opt.optim.lr = opt.optim.lr_ft = 1e-2
     graph = ShapeGraph.from_opt(opt)
     rng = np.random.default_rng(seed)
+    numpy_weights(graph, rng)
+    batch = step_batch(rng, H, B, n_pts)
+    masks = [torch.tensor([1 / 0.9, 0.0, 1 / 0.9, 1 / 0.9]), torch.tensor([0.0, 1 / 0.9, 1 / 0.9, 0.0])]
+    return opt, graph, batch, masks
+
+
+def numpy_weights(graph, rng):
+    """Draw ``graph``'s weights from ``rng`` as the CPU parity tests do
+    (parameters and running means N(0, 0.05), running variances U(0.6, 1.4))
+    and scale its depth head's last conv into the head's clamp."""
     params = dict(graph.named_parameters())
     with torch.no_grad():
         for k, t in graph.state_dict().items():
@@ -700,6 +758,11 @@ def tiny_step_case(seed=2):
         head = graph.dpt_depth.scratch.output_conv[4]
         head.weight.mul_(1e-2)
         head.bias.fill_(0.5)
+
+
+def step_batch(rng, H, B, n_pts):
+    """A random training batch of ``B`` samples at ``H`` whose samples differ
+    in brightness and mask rate, drawn from ``rng``, as CPU tensors."""
     f = 1.3875 * H
     K = np.array([[f, 0, H / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
     pose = np.concatenate([np.eye(3), [[0.0], [0.0], [1.78]]], axis=1)
@@ -712,13 +775,12 @@ def tiny_step_case(seed=2):
         "gt_sample_points": rng.normal(size=(B, n_pts, 3)) * 0.3,
         "gt_sample_sdf": rng.normal(size=(B, n_pts)) * 0.05,
     }
-    batch = {k: torch.tensor(np.asarray(v, np.float32)) for k, v in batch.items()}
-    masks = [torch.tensor([1 / 0.9, 0.0, 1 / 0.9, 1 / 0.9]), torch.tensor([0.0, 1 / 0.9, 1 / 0.9, 0.0])]
-    return opt, graph, batch, masks
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in batch.items()}
 
 
-def step_on(where, opt, graph, batch, masks, threads=None):
-    """One :func:`tiny_step_case` step on ``where`` (on the CPU with
+def step_on(where, opt, graph, batch, masks, threads=None, **step_kw):
+    """One :func:`tiny_step_case` (or :func:`depth_step_case`, without
+    ``masks``, with its ``loss_fn``) step on ``where`` (on the CPU with
     ``threads`` threads if given): ``(state dict, gradients, metrics)``, all on
     the CPU."""
     from zeroshape_tpu_torch.parallel import train as ptrain
@@ -730,14 +792,14 @@ def step_on(where, opt, graph, batch, masks, threads=None):
         optimizer = ptrain.make_optimizer(g, opt.optim)
         grads = ptrain.capture_grads(g, optimizer)
         metrics, _ = ptrain.train_step(g, optimizer, {k: v.to(where) for k, v in batch.items()}, opt,
-                                       dp_masks=[m.to(where) for m in masks])
+                                       dp_masks=masks and [m.to(where) for m in masks], **step_kw)
     finally:
         torch.set_num_threads(n)
     return ({k: v.cpu() for k, v in g.state_dict().items()}, {k: v.cpu() for k, v in grads.items()},
             {k: float(v) for k, v in metrics.items()})
 
 
-def step_disagreements(opt, graph, cpu, card, cpu_1):
+def step_disagreements(opt, graph, cpu, card, cpu_1, min_live=500):
     """What differs between the CPU's and the card's step beyond the stated
     tolerances, as a list of strings, and a summary dict. ``cpu_1`` is the
     CPU's step on one thread: the gradient of an fp32 step is only as
@@ -757,7 +819,8 @@ def step_disagreements(opt, graph, cpu, card, cpu_1):
       the card's gradients, 1e-4, which is 1% of AdamW's first step at lr
       1e-2 (against the CPU's own step, an element whose gradient lies
       within rounding of zero may move by +-lr either way);
-    * BatchNorm statistics: 1e-4, relative above 1.
+    * BatchNorm statistics: 1e-4, relative above 1;
+    * at least ``min_live`` parameters with a nonzero gradient.
     """
     from zeroshape_tpu_torch.parallel import train as ptrain
 
@@ -796,7 +859,7 @@ def step_disagreements(opt, graph, cpu, card, cpu_1):
         bad.append(f"update max|d| {summary['update']:.3e}")
     if not summary["stats"] <= 1e-4:
         bad.append(f"BatchNorm statistics max|d| {summary['stats']:.3e}")
-    if summary["live"] < 500:
+    if summary["live"] < min_live:
         bad.append(f"only {summary['live']} parameters have a gradient")
     return bad, summary
 
@@ -854,6 +917,282 @@ def checkpoint_round_trip(res, opt):
           f"state dict equal {same}, optimizer state equal {same_opt}, meta {meta}")
     if not (same and same_opt and meta["iter"] == res["it"]):
         fail("the checkpoint did not round-trip")
+
+
+GATE_CD_BOUND = 0.11  # tests/test_accuracy_gate.py's CD_BOUND
+
+
+def accuracy_gate(dev):
+    """The accuracy gate (``tests/test_accuracy_gate.py``) through
+    ``shape_engine.train``: ``config.accuracy_gate_opt()`` from random
+    weights, bf16 autocast, on ``train_samples(4, 6, 64, seed=0,
+    n_pc_points=2048, n_sdf_points=4096, val_views=1)``, 24 epochs of 2
+    steps, validated before the first step and after the last. Fails unless
+    the best CD is below 0.11. Its decoder (C=64) is not K1's: its
+    validations decode plainly and score through K2. Returns the
+    validations' launches summed."""
+    from zeroshape_tpu_torch import config
+    from zeroshape_tpu_torch.data import analytic
+    from zeroshape_tpu_torch.runtime import shape_engine
+
+    data = analytic.train_samples(4, 6, 64, seed=0, n_pc_points=2048, n_sdf_points=4096, val_views=1)
+    opt = config.accuracy_gate_opt()
+    out = tempfile.mkdtemp()
+    try:
+        with instrumented(shape_engine, "validate") as (steps, vals):
+            t0 = time.perf_counter()
+            res = shape_engine.train(opt, data, out, device=dev)
+            seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out)
+    s_step = [s for s, _ in steps]
+    in_steps, in_val = summed([n for _, n in steps]), summed(vals)
+    print(f"accuracy gate ({len(data)} training views of 64^2, batch {opt.batch_size}, {opt.max_epoch} epochs, "
+          f"bf16 autocast): {len(steps)} steps, median {np.median(s_step[1:]):.4f} s/step (first "
+          f"{s_step[0]:.4f}), the whole run {seconds:.1f} s; losses first 4 "
+          f"{[round(x, 4) for x in res['losses'][:4]]}, last 4 {[round(x, 4) for x in res['losses'][-4:]]}")
+    for (ep, cd), n in zip(res["val"], vals):
+        print(f"accuracy gate validation at epoch {ep}: CD {cd:.6f}; launches {n}")
+    print(f"accuracy gate: best CD {res['best_val']:.6f} @ epoch {res['best_ep']} (bound {GATE_CD_BOUND}); "
+          f"launches in the train steps {in_steps}, in validation {in_val}")
+    if len(steps) != 48 or [ep for ep, _ in res["val"]] != [0, opt.max_epoch]:
+        fail(f"the gate took {len(steps)} steps and validated at {[ep for ep, _ in res['val']]}")
+    if any(in_steps.values()) or in_val["K1"] or not in_val["K2"] or in_val["K3"] or not in_val["plain"]:
+        fail(f"gate launches in steps {in_steps} (want none), in validation {in_val} (want K2 and plain decodes)")
+    if not np.isfinite(res["losses"]).all() or not res["best_val"] < GATE_CD_BOUND:
+        fail(f"the accuracy gate's best CD {res['best_val']} is not below {GATE_CD_BOUND}")
+    return in_val
+
+
+def depth_run(dev, data, out):
+    """The ``depth_gen`` recipe through ``depth_engine.train`` at full width
+    (224^2, bf16 autocast, batch 8) on the training run's data: 2 epochs of 3
+    steps, validation before the first step and after epoch 2; then the
+    final-metrics evaluation of the trained graph, which writes
+    ``best_val.txt``. Checkpoints stay in ``out``. Returns (the run's
+    result, its options)."""
+    from zeroshape_tpu_torch import config
+    from zeroshape_tpu_torch.metrics.depth_metrics import metric_keys
+    from zeroshape_tpu_torch.runtime import depth_engine
+
+    opt = config.override_options(config.depth_gen_opt(), {
+        "max_epoch": 2, "tb": None, "freq": {"print": 1, "scalar": 3, "ckpt_latest": 1000, "eval": 2}})
+    keys = metric_keys(tuple(opt.eval.d_thresholds))
+    reset_counts()
+    with instrumented(depth_engine, "evaluate") as (steps, vals):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = depth_engine.train(opt, data, out, device=dev)
+        seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reset_counts()
+    final = depth_engine.evaluate(res["graph"], data.val, opt, out, training=False, device=dev)
+    torch.cuda.synchronize()
+    every = summed([n for _, n in steps] + vals + [launch_counts()])
+    files = sorted(os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out) for f in fs)
+    s_step = [s for s, _ in steps]
+    med = float(np.median(s_step[1:6]))
+    print(f"depth training (depth_gen recipe, batch {opt.batch_size}, bf16 autocast): {len(steps)} steps, median "
+          f"{med:.4f} s/step over steps 2-{len(s_step)} (per step {[round(x, 4) for x in s_step]}), "
+          f"{opt.batch_size / med:.2f} samples/s; peak memory {peak:.2f} GiB; the whole run {seconds:.1f} s with "
+          f"{len(vals)} validations; files written {files}")
+    print(f"depth training losses: {[round(x, 5) for x in res['losses']]}; best l1_err {res['best_val']:.6f} @ "
+          f"epoch {res['best_ep']}")
+    for ep, scalars in res["val_scalars"]:
+        print(f"depth validation at epoch {ep}: " + ", ".join(f"{k} {scalars['eval/' + k]:.6f}" for k in keys))
+    written = dict(line.split(": ") for line in open(os.path.join(out, "best_val.txt")).read().splitlines())
+    print(f"depth final metrics ({len(data.val)} samples): {final}; best_val.txt {written}; launches {every}")
+    if len(steps) != 6 or not np.isfinite(res["losses"]).all() or [ep for ep, _ in res["val"]] != [0, 2]:
+        fail(f"depth training took {len(steps)} steps, losses {res['losses']}, validations {res['val']}")
+    if not all(np.isfinite(list(v.values())).all() for _, v in res["val_scalars"]) or not np.isfinite(
+            list(final.values())).all():
+        fail("depth metrics not finite")
+    if list(written) != keys or any(abs(float(written[k]) - final[k]) > 1e-6 for k in keys):
+        fail(f"best_val.txt {written} does not hold the final metrics {final}")
+    if sorted(files) != ["best.ckpt", "best_val.txt", "checkpoint/ep1.ckpt", "latest.ckpt"]:
+        fail(f"depth run files {files}")
+    if any(every.values()):
+        fail(f"the depth run launched {every}: it has no kernel and no implicit decoder")
+    return res, opt
+
+
+def depth_overfit(dev, res, data, opt):
+    """20 depth steps on one fixed batch of 8, continuing the depth run's
+    optimizer: the mean of the last 5 losses must fall below 0.9 x the mean
+    of the first 5."""
+    from zeroshape_tpu_torch.models import graph_depth
+    from zeroshape_tpu_torch.parallel import train as ptrain
+    from zeroshape_tpu_torch.runtime import depth_engine, shape_engine
+
+    batch = shape_engine.to_device(data.batch(data.batch_order(0, 8, 0)[0], 0, 0), dev, depth_engine.MODEL_KEYS)
+    graph, optimizer = res["graph"], res["optimizer"]
+    losses = []
+    for _ in range(20):
+        metrics, _ = ptrain.train_step(graph, optimizer, batch, opt, loss_fn=graph_depth.compute_loss,
+                                       metrics_fn=None)
+        losses.append(float(metrics["loss_all"]))
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"depth overfit on one batch of 8, 20 steps at lr {optimizer.lr():g}: losses "
+          f"{[round(x, 5) for x in losses]}; mean of the first 5 {first:.5f}, of the last 5 {last:.5f} "
+          f"({last / first:.4f} of it)")
+    if not np.isfinite(losses).all() or not last < 0.9 * first:
+        fail("20 depth steps on one fixed batch did not lower the loss below 0.9 x its start")
+
+
+def depth_step_case(seed=3):
+    """The depth step that the card and the CPU both take: the depth graph of
+    ``config.depth_gen_opt(64)`` in fp32 at lr 1e-2, with weights drawn as
+    :func:`tiny_step_case` draws them and its depth head scaled into its
+    clamp, and a random batch of 4 (:func:`step_batch`). Returns ``(opt, graph,
+    batch)``."""
+    from zeroshape_tpu_torch import config
+    from zeroshape_tpu_torch.models.graph_depth import DepthGraph
+    from zeroshape_tpu_torch.runtime import depth_engine
+
+    opt = config.depth_gen_opt(64)
+    opt.arch.dtype = "float32"
+    opt.optim.lr = 1e-2
+    graph = DepthGraph.from_opt(opt)
+    rng = np.random.default_rng(seed)
+    numpy_weights(graph, rng)
+    batch = step_batch(rng, 64, 4, 1)
+    return opt, graph, {k: batch[k] for k in depth_engine.MODEL_KEYS}
+
+
+def depth_against_cpu(dev):
+    """:func:`depth_step_case`'s step on the card and on the CPU (and on one
+    CPU thread), TF32 off, held to :func:`step_disagreements`, every
+    parameter that the step can reach with a gradient."""
+    from zeroshape_tpu_torch.models import graph_depth
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt, graph, batch = depth_step_case()
+    kw = dict(loss_fn=graph_depth.compute_loss, metrics_fn=None)
+    cpu = step_on("cpu", opt, graph, batch, None, **kw)
+    cpu_1 = step_on("cpu", opt, graph, batch, None, threads=1, **kw)
+    reset_counts()
+    card = step_on(dev, opt, graph, batch, None, **kw)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    # all but the never-run refinenet4 unit and the ViT's last LayerNorm, whose output the DPT does not read
+    reachable = sum(not any(u in k for u in ("refinenet4.resConfUnit1.", "pretrained.model.norm."))
+                    for k, _ in graph.named_parameters())
+    bad, summary = step_disagreements(opt, graph, cpu, card, cpu_1, min_live=reachable)
+    mods = ", ".join(f"{m} {r:.2e} (CPU runs {x:.2e}, norm {nrm:.3g})" for m, (r, x, nrm) in
+                     summary.get("modules", {}).items())
+    print(f"depth step (fp32, TF32 off, H=64, batch 4, lr 1e-2), card against CPU: loss {card[2]['loss_all']:.6f} "
+          f"vs {cpu[2]['loss_all']:.6f}; {summary.get('live')} of {reachable} parameters with a gradient; gradient "
+          f"|d| / norm by module: {mods}; update max|d| {summary.get('update', float('nan')):.3e}; BatchNorm "
+          f"statistics max rel|d| {summary.get('stats', float('nan')):.3e}; launches {n}")
+    if bad or any(n.values()):
+        fail(f"the depth step on the card disagrees with the CPU or launched {n}: {bad[:6]} ({len(bad)} in all)")
+
+
+class _Stop(Exception):
+    """Ends a run at its first step, once that step's inputs were checked."""
+
+
+@contextlib.contextmanager
+def first_step_check(check):
+    """Hand ``check(graph, optimizer)`` the graph and optimizer of the first
+    ``parallel.train.train_step`` call; ``check`` returns whether the run
+    goes on (else it ends with :class:`_Stop`)."""
+    from zeroshape_tpu_torch.parallel import train as ptrain
+
+    step, seen = ptrain.train_step, []
+
+    def checked(graph, optimizer, *args, **kwargs):
+        if not seen:
+            seen.append(1)
+            if not check(graph, optimizer):
+                raise _Stop
+        return step(graph, optimizer, *args, **kwargs)
+
+    ptrain.train_step = checked
+    try:
+        yield seen
+    finally:
+        ptrain.train_step = step
+
+
+def differing(graph, want, prefixes):
+    """The keys under ``prefixes`` where ``graph``'s state differs from ``want``'s, bit for bit."""
+    got = graph.state_dict()
+    return [k for k in got if k.startswith(prefixes) and not torch.equal(got[k].cpu(), want[k])]
+
+
+def staged_run(dev, data, depth_ckpt, out):
+    """A ``shape_gen`` run with ``pretrain.depth`` set to the depth run's
+    ``best.ckpt``: before its first step its DPT and intrinsics head
+    (parameters and BatchNorm statistics) must equal the checkpoint's and
+    the rest ``init_like_flax(seed)``'s, bit for bit; 1 epoch of 3 steps and
+    its validations must launch K1 and K2 and decode nothing plainly.
+    Checkpoints go to ``out``. Returns the validations' launches summed."""
+    from zeroshape_tpu_torch import config
+    from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+    from zeroshape_tpu_torch.runtime import shape_engine
+    from zeroshape_tpu_torch.weights import init_like_flax
+
+    opt = config.override_options(config.shape_gen_opt(), {
+        "max_epoch": 1, "tb": None, "pretrain": {"depth": depth_ckpt},
+        "freq": {"print": 1, "scalar": 3, "ckpt_latest": 1000, "eval": 1}})
+    pre = torch.load(depth_ckpt, map_location="cpu", weights_only=True)["graph"]
+    fresh = init_like_flax(ShapeGraph.from_opt(opt), opt.seed).state_dict()
+    found = {}
+
+    def check(graph, _):
+        found["staged"] = differing(graph, pre, ("dpt_depth.", "intr_head.", "intr_proj."))
+        found["fresh"] = differing(graph, fresh, ("coord_encoder.", "impl_network."))
+        found["n"] = sum(k.startswith(("dpt_depth.", "intr_head.", "intr_proj.")) for k in graph.state_dict())
+        return True
+
+    with first_step_check(check), instrumented(shape_engine, "validate") as (steps, vals):
+        res = shape_engine.train(opt, data, out, device=dev)
+    in_steps, in_val = summed([n for _, n in steps]), summed(vals)
+    print(f"staged shape run (pretrain.depth = the depth run's best.ckpt): before the first step "
+          f"{found['n'] - len(found['staged'])} of {found['n']} dpt_depth / intr_head / intr_proj tensors equal the "
+          f"checkpoint's bit for bit, coord_encoder / impl_network differ from init_like_flax at "
+          f"{len(found['fresh'])} tensors; {len(steps)} steps, losses {[round(x, 5) for x in res['losses']]}; "
+          f"validation CD {res['val']}; launches in the steps {in_steps}, in validation {in_val}")
+    if found["staged"] or found["fresh"] or not found["n"]:
+        fail(f"staging: differing {found['staged'][:5]} from the checkpoint, {found['fresh'][:5]} from the init")
+    if len(steps) != 3 or not np.isfinite(res["losses"]).all():
+        fail(f"the staged run took {len(steps)} steps, losses {res['losses']}")
+    if any(in_steps.values()) or not in_val["K1"] or not in_val["K2"] or in_val["K3"] or in_val["plain"]:
+        fail(f"staged run launches in steps {in_steps}, in validation {in_val} (want K1 and K2, nothing plain)")
+    return in_val
+
+
+def load_run(dev, data, ckpt):
+    """A fresh ``shape_gen`` run with ``load`` set to ``ckpt`` must start
+    from its weights, bit for bit, with an optimizer that has taken no
+    step; the run ends at its first step."""
+    from zeroshape_tpu_torch import config
+    from zeroshape_tpu_torch.runtime import shape_engine
+
+    opt = config.override_options(config.shape_gen_opt(), {"max_epoch": 1, "tb": None, "debug": True, "load": ckpt})
+    want = torch.load(ckpt, map_location="cpu", weights_only=True)["graph"]
+    found = {}
+
+    def check(graph, optimizer):
+        found["differ"] = differing(graph, want, ("",))
+        found["optimizer"] = (optimizer.updates, len(optimizer.adamw.state))
+        return False
+
+    out = tempfile.mkdtemp()
+    try:
+        with first_step_check(check):
+            try:
+                shape_engine.train(opt, data, out, device=dev)
+            except _Stop:
+                pass
+    finally:
+        shutil.rmtree(out)
+    print(f"--load of the staged run's latest.ckpt: {len(want) - len(found.get('differ', want))} of {len(want)} "
+          f"tensors equal the checkpoint's at the first step; optimizer (updates, states) {found.get('optimizer')}")
+    if "differ" not in found or found["differ"] or found["optimizer"] != (0, 0):
+        fail(f"--load did not start from the checkpoint's weights with a fresh optimizer: {found}")
 
 
 def main():
@@ -914,10 +1253,27 @@ def main():
     train_steps(dev, res, data, opt)
     cuda_against_cpu(dev)
     checkpoint_round_trip(res, opt)
+    del res
+    torch.cuda.empty_cache()
+
+    gate_val = accuracy_gate(dev)
+    out = tempfile.mkdtemp()  # the depth run's and the staged run's checkpoints
+    try:
+        depth_res, depth_opt = depth_run(dev, data, os.path.join(out, "depth"))
+        depth_overfit(dev, depth_res, data, depth_opt)
+        del depth_res
+        torch.cuda.empty_cache()
+        depth_against_cpu(dev)
+        staged_val = staged_run(dev, data, os.path.join(out, "depth", "best.ckpt"), os.path.join(out, "shape"))
+        load_run(dev, data, os.path.join(out, "shape", "latest.ckpt"))
+    finally:
+        shutil.rmtree(out)
 
     # launches: the sum over the path runs (main path, final and validation
-    # posture, the training run's validations), each counted from 0
-    launches = {k: main_launches * (k == "K1") + final[k] + val[k] + train_val[k] for k in ("K1", "K2", "K3")}
+    # posture, the validations of the training run, the gate and the staged
+    # run), each counted from 0
+    launches = {k: main_launches * (k == "K1") + sum(n[k] for n in (final, val, train_val, gate_val, staged_val))
+                for k in ("K1", "K2", "K3")}
     k1["launches"] = launches["K1"]
     kernels = [k1]
     for name, key, times, err, line in (

@@ -1,12 +1,18 @@
 """The kernels against their plain versions, on the card: the fused decoder
-(K1) and the Chamfer kernels (K2, K3); and a training step on the card
-against the same step on the CPU, which launches none of the kernels.
+(K1) and the Chamfer kernels (K2, K3); the decode chosen by the decoder's
+shapes (a narrow decoder trains, validates, reconstructs and evaluates
+through the plain decode; the shipped one only through K1); and a training
+step on the card against the same step on the CPU, which launches none of
+the kernels.
 
 These tests need a CUDA device and skip without one. This file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 """
+
+import os
+import types
 
 import numpy as np
 import pytest
@@ -113,6 +119,90 @@ def test_kernel_rejects_bad_operands():
             ik.fused_decode(impl, caches, torch.zeros(8, 3, device="cuda", dtype=torch.float64), packed)
         with pytest.raises(ValueError):
             ik.fused_decode(impl, caches, torch.zeros(8, 3, device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# the decode chosen by the decoder's shapes (K1, or the plain decode)
+# ---------------------------------------------------------------------------
+
+# the trainer tests' tiny run (tests/test_torch_port_trainer.py), on the card
+TINY_H = 32
+TINY = [f"--image_size=[{TINY_H},{TINY_H}]", "--arch.latent_dim=64", "--arch.impl.n_channels=64",
+        "--arch.impl.mlp_layers=4", "--arch.impl.skip_in=[2]", "--arch.depth.n_blocks=2", "--batch_size=2",
+        "--max_epoch=2", "--seed=3", "--training.n_sdf_points=64", "--optim.fix_dpt", "--tb=null", "--freq.print=1",
+        "--freq.scalar=1", "--freq.ckpt_latest=3", "--eval.vox_res=16", "--eval.num_points=200", "--freq.eval=1",
+        "--data.analytic.n_objects=2", "--data.analytic.n_views=3", "--data.analytic.seed=0",
+        "--data.analytic.n_pc_points=300", "--data.analytic.n_sdf_points=400"]
+
+
+def _counts():
+    from zeroshape_tpu_torch.recon import decode_points
+
+    return ik.fused_decode.launches, ch.nn_one_way.launches, decode_points.plain_decodes
+
+
+@pytest.mark.gpu
+def test_tiny_decoder_trains_and_validates_on_the_card(tmp_path):
+    """A decoder K1 is not built for (C=64) trains and validates on the card:
+    its validations decode plainly, score through K2 and launch no K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from zeroshape_tpu_torch.train import main as train_main
+
+    before = _counts()
+    res = train_main(TINY + [f"--output_path={tmp_path}"])
+    torch.cuda.synchronize()
+    k1, k2, plain = (a - b for a, b in zip(_counts(), before))
+    assert res["it"] == 4 and np.isfinite(res["losses"]).all()
+    assert [ep for ep, _ in res["val"]] == [0, 1, 2] and np.isfinite([cd for _, cd in res["val"]]).all()
+    assert k1 == 0 and k2 > 0 and plain == 3 * 2  # 3 validations of 2 samples at eval batch 1, a dense decode each
+
+
+@pytest.mark.gpu
+def test_tiny_decoder_reconstructs_and_evaluates_on_the_card(tmp_path):
+    """``recon.build`` of a narrow decoder packs nothing, and it reconstructs
+    and evaluates (dense final posture) through the plain decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from zeroshape_tpu_torch import config, recon
+    from zeroshape_tpu_torch.data import analytic
+    from zeroshape_tpu_torch.runtime import shape_engine
+
+    model = recon.build(config.tiny_opt(TINY_H))
+    assert model.packed is None
+    rgb, mask = config.synthetic_image(TINY_H, seed=1)
+    before = _counts()
+    world, *_ = recon.reconstruct(model, {"rgb_input_map": rgb, "mask_input_map": mask}, vox_res=16, num_points=300)
+    samples = analytic.eval_samples(2, 2, TINY_H, n_pc_points=300)
+    res = shape_engine.evaluate(model, samples, config.eval_opt(config.tiny_opt(TINY_H), vox_res=16, num_points=300),
+                                str(tmp_path), ["prim"])
+    torch.cuda.synchronize()
+    k1, k2, plain = (a - b for a, b in zip(_counts(), before))
+    assert tuple(world.shape) == (300, 3) and torch.isfinite(world).all()
+    assert np.isfinite(res["val_metric"]) and os.listdir(tmp_path)
+    assert k1 == 0 and k2 > 0 and plain == 2 + 1  # reconstruct: coarse + fine; evaluate: one dense batch
+
+
+@pytest.mark.gpu
+def test_shipped_decoder_decodes_through_the_kernel_only():
+    """The shipped decoder packs, and every decode launches K1 once a sample,
+    never the plain decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from zeroshape_tpu_torch.recon import decode_points
+
+    impl, caches, packed, g = _decoder(5)
+    model = types.SimpleNamespace(graph=types.SimpleNamespace(impl_network=impl), packed=packed)
+    before = _counts()
+    with torch.inference_mode():
+        pts = (torch.rand(2, 500, 3, generator=g) * 3 - 1.5).cuda()
+        two = [(torch.cat([k, k]), torch.cat([v, v])) for k, v in caches]
+        got = decode_points(model, two, pts)
+        want = impl.decode(caches, pts[1:])[0][0]
+    torch.cuda.synchronize()
+    k1, _, plain = (a - b for a, b in zip(_counts(), before))
+    assert (k1, plain) == (2, 0)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want.cpu().numpy(), rtol=8e-2, atol=2e-2)
 
 
 # ---------------------------------------------------------------------------

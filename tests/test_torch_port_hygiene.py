@@ -10,7 +10,7 @@ import torch
 from __graft_entry__ import _full_opt, _tiny_opt
 from zeroshape_tpu_torch import camera, config, recon
 from zeroshape_tpu_torch.metrics import eval3d
-from zeroshape_tpu_torch.runtime import shape_engine
+from zeroshape_tpu_torch.runtime import depth_engine, shape_engine
 from zeroshape_tpu_torch.models import resolve_compute_dtype
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,6 +61,8 @@ def test_port_sources_name_no_jax_package():
         lambda: camera.get_rotation_sphere(2, 2, 2),
         lambda: shape_engine.evaluate(None, [], config.eval_opt(config.tiny_opt(32)), ".", ["prim"]),
         lambda: shape_engine.train(config.shape_gen_opt(32), None, "unused"),
+        lambda: depth_engine.train(config.depth_gen_opt(32), None, "unused"),
+        lambda: depth_engine.evaluate(None, [], config.depth_gen_opt(32), "unused"),
     ],
 )
 def test_default_device_needs_cuda(entry, monkeypatch):

@@ -111,7 +111,8 @@ def test_wrapper_on_cpu_is_the_plain_decode(small):
     ],
 )
 def test_fused_gate_matches_jax(key, value):
-    """The packer accepts exactly the decoders the JAX ``fused_supported`` accepts."""
+    """``kernel_supported`` is the JAX ``fused_supported``, and the packer
+    accepts exactly the decoders it accepts."""
     opt = config.full_opt()
     if key is not None:
         node, *path = [opt.arch] + key.split(".")
@@ -124,6 +125,7 @@ def test_fused_gate_matches_jax(key, value):
         n_layers_mlp=impl.mlp_layers, num_heads=arch.num_heads, mlp_ratio=impl.mlp_ratio,
         skip_in=tuple(impl.skip_in),
     )
+    assert ik.kernel_supported(port) == j_fused_supported(opt)
     if j_fused_supported(opt):
         ik.pack_decoder_params(port)
     else:

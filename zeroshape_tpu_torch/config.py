@@ -1,5 +1,6 @@
 """Attribute-dict config, the two model configurations the port ships, the
-evaluation options, the ``shape_gen`` training recipe, and the CLI options.
+evaluation options, the training recipes (``shape_gen``, ``depth`` and
+``depth_gen``, the accuracy gate's), and the CLI options.
 
 Counterpart of ``zeroshape_tpu/config.py`` (the ``Config`` tree, the YAML
 loader with ``_parent_`` inheritance and dotted CLI overrides) and of the
@@ -157,7 +158,8 @@ def shape_gen_opt(H=224):
         "seed": 0,
         "resume": False,
         "debug": False,
-        "arch": {"dtype": "auto", "depth": {"head_init_scale": 0.001}},
+        "pretrain": {"depth": None},
+        "arch": {"dtype": "auto", "depth": {"pretrained": None, "head_init_scale": 0.001}},
         "training": {"n_sdf_points": 4096},
         "loss_weight": {"shape": 1, "depth": 1, "intr": 10},
         "optim": {"lr": 1e-4, "lr_ft": 1e-4},
@@ -165,6 +167,86 @@ def shape_gen_opt(H=224):
         "tb": {"num_images": [4, 8]},
         "freq": {"print": 200, "print_eval": 20, "scalar": 500, "vis": 5000, "save_vis": 20000,
                  "ckpt_latest": 500, "eval": 50},
+    })
+
+
+def depth_opt(H=224):
+    """``full_opt`` under ``options/depth.yaml``, the depth + intrinsics
+    pretraining recipe: batch 44, lr 3e-5 for every group (no ``lr_ft``),
+    weight decay 0.05, no schedule, loss weights depth 1 / intr 10 (no shape
+    loss), the omnidata DPT weights as ``arch.depth.pretrained``, validation
+    at eval batch 44 with the delta thresholds (1.02, 1.05, 1.1, 1.2) and no
+    depth cap, every epoch."""
+    return override_options(full_opt(H), {
+        "group": "depth", "name": "depth_est", "load": None, "yaml": None, "task": "depth", "datadir": None,
+        "ckpt": None, "batch_size": 44, "debug": False, "profile": False, "image_size": [H, H], "max_epoch": 15,
+        "output_root": "output", "resume": False, "seed": 0,
+        "arch": {"dtype": "auto", "depth": {"pretrained": "weights/omnidata_dpt_depth_v2.ckpt"}},
+        "eval": {"batch_size": 44, "n_vis": 50, "depth_cap": None, "d_thresholds": [1.02, 1.05, 1.1, 1.2]},
+        "data": {"num_classes_test": 15, "dataset_train": "synthetic", "dataset_test": "synthetic",
+                 "synthetic": {"subset": "objaverse_LVIS,ShapeNet55"}},
+        "training": {"n_sdf_points": 4096},
+        "loss_weight": {"shape": None, "depth": 1, "intr": 10},
+        "optim": {"lr": 3e-5, "lr_ft": None, "weight_decay": 0.05, "fix_dpt": False, "clip_norm": None, "accum": 1,
+                  "sched": False},
+        "tb": {"num_images": [4, 8]},
+        "freq": {"print": 200, "print_eval": 100, "scalar": 1000, "vis": 1000, "save_vis": 1000,
+                 "ckpt_latest": 1000, "eval": 1},
+    })
+
+
+def depth_gen_opt(H=224):
+    """:func:`depth_opt` under ``options/depth_gen.yaml``, stage 1 of the
+    analytic two-stage recipe: from random weights (no omnidata file), the
+    depth head initialised at 0.001, batch 8, lr 1e-4, eval batch 8,
+    validation every 25 epochs. Its ``best.ckpt`` feeds a shape run's
+    ``pretrain.depth``."""
+    return override_options(depth_opt(H), {
+        "name": "depth_gen", "batch_size": 8, "max_epoch": 100,
+        "arch": {"depth": {"pretrained": None, "head_init_scale": 0.001}},
+        "data": {"synthetic": {"subset": "analytic"}},
+        "eval": {"batch_size": 8, "n_vis": 2},
+        "optim": {"lr": 1e-4},
+        "freq": {"print": 100, "print_eval": 20, "scalar": 500, "vis": 5000, "save_vis": 20000,
+                 "ckpt_latest": 500, "eval": 25},
+    })
+
+
+GATE_EPOCHS = 24
+
+
+def accuracy_gate_opt():
+    """The model and recipe of the accuracy gate (``tests/test_accuracy_gate.py``):
+    the shape graph at 64^2 with a narrow decoder (latent 64, C=64, mlp
+    ratio 2, 4 MLP linears, skip at 2) over the full-width encoders, trained
+    from random weights for 24 epochs at batch 8, lr = lr_ft = 1e-3, no
+    schedule, 512 SDF points a sample, all three losses; validated before
+    the first step and after the last epoch at vox 32, 2,048 points, eval
+    batch 4, no brute force. Its data is ``data.analytic.train_samples(4, 6,
+    64, seed=0, n_pc_points=2048, n_sdf_points=4096, val_views=1)``; the
+    gate passes at a best CD below 0.11."""
+    H = 64
+    return override_options(eval_opt(full_opt(H)), {
+        "group": "shape", "name": "accgate", "yaml": None, "load": None, "resume": False, "debug": False,
+        "profile": False, "seed": 0, "batch_size": 8, "image_size": [H, H], "max_epoch": GATE_EPOCHS,
+        "arch": {
+            "num_heads": 8, "latent_dim": 64, "win_size": 16,
+            "depth": {"encoder": "resnet", "n_blocks": 2, "dsp": 1, "pretrained": None, "head_init_scale": 0.001},
+            "rgb": {"encoder": None, "n_blocks": 2},
+            "impl": {"n_channels": 64, "att_blocks": 2, "mlp_ratio": 2.0, "posenc_perlayer": False,
+                     "mlp_layers": 4, "posenc_3D": 0, "skip_in": [2]},
+        },
+        "eval": {"batch_size": 4, "brute_force": False, "n_vis": 0, "vox_res": 32, "num_points": 2048,
+                 "range": [-1.5, 1.5], "icp": False, "f_thresholds": [0.01, 0.05, 0.2]},
+        "data": {"num_classes_test": 2, "max_img_cat": None, "dataset_train": "synthetic",
+                 "dataset_test": "synthetic", "bgcolor": 1, "synthetic": {"subset": "analytic", "percentage": 1}},
+        "training": {"n_sdf_points": 512, "shape_loss": {"impt_weight": 1, "impt_thres": 0.01},
+                     "depth_loss": {"grad_reg": 0.1, "depth_inv": True, "mask_shrink": False}},
+        "loss_weight": {"shape": 1, "depth": 1, "intr": 10},
+        "optim": {"lr": 1e-3, "lr_ft": 1e-3, "weight_decay": 0.05, "fix_dpt": False, "clip_norm": None,
+                  "accum": 1, "sched": False},
+        "freq": {"print": 10, "print_eval": 10, "scalar": 1000, "vis": 100000, "save_vis": 100000,
+                 "ckpt_latest": 1000, "eval": GATE_EPOCHS},
     })
 
 

@@ -1,7 +1,7 @@
 """Fused implicit-decoder kernel: weight packing, build, and wrapper.
 
 Counterpart of ``zeroshape_tpu/ops/implicit_kernel.py`` (``fused_decode``,
-``pack_decoder_params``; ``_check_module`` is the gate of ``fused_supported``).
+``pack_decoder_params``; :func:`kernel_supported` is ``fused_supported``).
 The kernel itself is CUDA C++ for ``sm_90a`` in ``csrc/implicit_decoder.cu``;
 its header comment gives the design and the bound. It is compiled with
 ``nvcc`` at first use into ``csrc/build/`` and bound with ctypes.
@@ -28,11 +28,12 @@ V_KEYS = 224  # latent rows of a packed V tile (7 chunks of 32)
 FC_CHUNK = 64  # hidden columns of one fc1 / fc2 product pair
 
 
-def _check_module(impl):
-    """Raise unless ``impl`` has the shapes the kernel is built for (the gate
-    of ``fused_supported``, ``zeroshape_tpu/ops/implicit_kernel.py:54-72``)."""
+def kernel_supported(impl) -> bool:
+    """Whether ``impl`` has the shapes the kernel is built for: the port's
+    ``fused_supported`` (``zeroshape_tpu/ops/implicit_kernel.py:54-72``).
+    A decoder without them decodes with the plain ``Implicit.decode``."""
     blocks = impl.blocks_attn
-    ok = (
+    return (
         impl.latent_proj.in_features == 256
         and impl.point_proj.proj.out_features == C
         and impl.num_heads == N_HEADS
@@ -41,7 +42,11 @@ def _check_module(impl):
         and len(impl.impl_mlp.layers) == N_LINEARS
         and tuple(impl.impl_mlp.skip_in) == SKIP_IN
     )
-    if not ok:
+
+
+def _check_module(impl):
+    """Raise unless :func:`kernel_supported`."""
+    if not kernel_supported(impl):
         raise ValueError(
             "the fused decoder kernel is built for latent_dim 256, C=256, 8 heads, 2 blocks, "
             "mlp_ratio 4, 9 skip-MLP linears with skips at (2, 4, 6)"

@@ -17,6 +17,8 @@ its ``optax.multi_transform``:
   gradients is applied once.
 * ``sched``: the per-epoch cosine, evaluated at the 0-based count of
   updates, with ``steps_per_epoch // accum`` updates an epoch (``:100-103``).
+* without ``lr_ft`` (the depth recipes), the finetune groups take ``lr``,
+  as ``:96`` does.
 
 :func:`train_step` runs one mini-batch: forward, loss, backward, optimizer.
 """
@@ -168,22 +170,30 @@ def batch_stats(model):
     return {n: b for n, b in model.named_buffers() if n.endswith(("running_mean", "running_var"))}
 
 
-def train_step(model, optimizer, batch, opt, generator=None, dp_masks=None, with_stats=False):
+def train_step(model, optimizer, batch, opt, generator=None, dp_masks=None, with_stats=False, loss_fn=compute_loss,
+               metrics_fn=attn_geo_stats):
     """One training mini-batch (``make_train_step``, ``train.py:161-204``).
 
-    ``model`` is a :class:`ShapeGraph` in train mode, ``batch`` the JAX
-    batch pytree as tensors on its device, ``generator`` the source of the
-    decoder's stochastic depth (or ``dp_masks``, one ``[B]`` mask per block).
-    Returns ``(metrics, batch_stats)``: ``loss_all`` and ``loss_{k}`` as
-    device scalars (no host sync), with ``with_stats`` also the attention
-    statistics; the BatchNorm statistics are the model's, updated in place.
+    ``model`` is a graph in train mode (a :class:`ShapeGraph`, or a
+    ``DepthGraph`` with its own ``loss_fn`` and no ``metrics_fn``), ``batch``
+    the JAX batch pytree as tensors on its device, ``generator`` the source
+    of the shape decoder's stochastic depth (or ``dp_masks``, one ``[B]``
+    mask per block; neither for the depth graph, which has none).
+    ``loss_fn(opt, batch, out, training)`` gives the unweighted loss terms,
+    ``metrics_fn(opt, batch, out)`` extra statistics, computed only
+    ``with_stats``. Returns ``(metrics, batch_stats)``: ``loss_all`` and
+    ``loss_{k}`` as device scalars (no host sync), with ``with_stats`` also
+    ``metrics_fn``'s; the BatchNorm statistics are the model's, updated in
+    place.
     """
     with record_function("train_forward"):
-        out = model(batch, train=True, generator=generator, dp_masks=dp_masks)
+        given = generator is not None or dp_masks is not None
+        stochastic_depth = {"generator": generator, "dp_masks": dp_masks} if given else {}
+        out = model(batch, train=True, **stochastic_depth)
     with record_function("train_loss"):
-        loss_dict = compute_loss(opt, batch, out, training=True)
+        loss_dict = loss_fn(opt, batch, out, training=True)
         total = summarize_loss(loss_dict, dict(opt.loss_weight))
-        extra = attn_geo_stats(opt, batch, out) if with_stats else {}
+        extra = metrics_fn(opt, batch, out) if with_stats and metrics_fn else {}
     with record_function("train_backward"):
         total.backward()
     with record_function("optimizer_step"):

@@ -5,7 +5,9 @@
 decode through the fused decoder kernel -> 10k area-uniform surface points
 in world coordinates. ``reconstruct_batch`` does the same for a batch, in
 either decode posture of the evaluation: coarse-to-fine, or the dense grid
-(also through the kernel) with the dense sampler.
+(also through the kernel) with the dense sampler. A decoder that the
+kernel is not built for (a narrower one, as in small training runs) takes
+the plain decode instead, as the JAX engine's XLA decoder does.
 
 Random init proxy (bench.py:113-139): BCE-trained occupancy decoders
 saturate (|logit| ~ O(10) away from the surface) while random-init logits
@@ -38,7 +40,7 @@ from zeroshape_tpu_torch.metrics.eval3d import (
 )
 from zeroshape_tpu_torch.models import resolve_compute_dtype
 from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
-from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode, pack_decoder_params
+from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode, kernel_supported, pack_decoder_params
 from zeroshape_tpu_torch.ops.marching_cubes import sample_surface_points, sample_surface_points_cells
 from zeroshape_tpu_torch.weights import init_like_flax
 
@@ -65,10 +67,33 @@ class ReconModel:
     device: torch.device
 
     def repack(self):
-        """Re-pack the kernel weights after the graph's weights changed."""
-        if self.device.type == "cuda":
-            self.packed = pack_decoder_params(self.graph.impl_network)
+        """Re-pack the kernel weights after the graph's weights changed: on
+        CUDA, for a decoder the kernel is built for; any other decoder keeps
+        ``packed`` None and decodes plainly (:func:`decode_points`)."""
+        impl = self.graph.impl_network
+        supported = self.device.type == "cuda" and kernel_supported(impl)
+        self.packed = pack_decoder_params(impl) if supported else None
         return self
+
+
+def decode_points(model, caches, pts):
+    """Logits ``[B, T]`` of ``pts [B, T, 3]`` against the caches of B samples,
+    chosen by the decoder's shapes as the JAX engine chooses by
+    ``fused_supported`` (``shape_engine.py:193-202``): K1, one launch a
+    sample, for a decoder the kernel is built for; any other decoder runs the
+    plain ``Implicit.decode`` in its compute dtype, one call for the batch,
+    counted in ``decode_points.plain_decodes``."""
+    impl = model.graph.impl_network
+    if kernel_supported(impl):
+        return torch.stack([
+            fused_decode(impl, [(k[b : b + 1], v[b : b + 1]) for k, v in caches], pts[b], model.packed)
+            for b in range(pts.shape[0])
+        ])
+    decode_points.plain_decodes += 1
+    return impl.decode(caches, pts)[0]
+
+
+decode_points.plain_decodes = 0
 
 
 def build(opt=None, device=None, seed=0):
@@ -109,7 +134,7 @@ def calibrate_random_field(model, batch, target=ACTIVE_TARGET, vox_res=VOX_RES, 
         caches = graph.impl_network.encode(latent)
         pts = coarse_lattice(vox_res, rng, FACTOR, model.device)
         n = vox_res // FACTOR + 1
-        logits = fused_decode(graph.impl_network, caches, pts, model.packed).reshape(n, n, n)
+        logits = decode_points(model, caches, pts[None])[0].reshape(n, n, n)
         shift = float(torch.quantile(logits.flatten().float(), 1.0 - INSIDE))
         for gain in (2.0**k for k in range(13)):
             occ = torch.sigmoid(model.sharpen * gain * (logits - shift))
@@ -166,10 +191,11 @@ def reconstruct_batch(
     """Images -> surface samples, in either decode posture of ``_recon_fn``
     (``shape_engine.py:142-319``).
 
-    ``hier=True`` is the coarse-to-fine decode (two K1 launches a sample) and
+    ``hier=True`` is the coarse-to-fine decode (two decodes: two K1 launches
+    a sample, or two plain decodes of the batch, :func:`decode_points`) and
     the sampler over its active cells; ``hier=False`` decodes the dense
-    ``(vox_res + 1)^3`` grid (one K1 launch a sample) and samples it with the
-    dense sampler. ``batch`` holds NHWC ``rgb_input_map [B, H, W, 3]`` and
+    ``(vox_res + 1)^3`` grid (one decode) and samples it with the dense
+    sampler. ``batch`` holds NHWC ``rgb_input_map [B, H, W, 3]`` and
     ``mask_input_map [B, H, W, 1]`` (numpy or tensors).
 
     Returns ``(out, level [B, S, S, S], world [B, num_points, 3],
@@ -185,12 +211,8 @@ def reconstruct_batch(
     with record_function("latent_trunk"):
         caches = graph.impl_network.encode(out["latent_depth"])
 
-    def decode_fn(pts):  # [B, T, 3] -> [B, T], one kernel launch a sample
-        return model.sharpen * torch.stack([
-            fused_decode(graph.impl_network, [(k[b : b + 1], v[b : b + 1]) for k, v in caches], pts[b],
-                         model.packed)
-            for b in range(B)
-        ])
+    def decode_fn(pts):  # [B, T, 3] -> [B, T]
+        return model.sharpen * decode_points(model, caches, pts)
 
     S = vox_res + 1
     with record_function("grid_decode"):

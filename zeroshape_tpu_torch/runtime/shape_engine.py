@@ -33,7 +33,7 @@ from zeroshape_tpu_torch.metrics import eval3d
 from zeroshape_tpu_torch.models import resolve_compute_dtype
 from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
 from zeroshape_tpu_torch.parallel import train as ptrain
-from zeroshape_tpu_torch.runtime import engine_base
+from zeroshape_tpu_torch.runtime import checkpoint, engine_base
 from zeroshape_tpu_torch.weights import init_like_flax
 
 SAMPLE_SEED = 7  # the generator of the surface samples (the JAX engine's PRNGKey(7))
@@ -214,11 +214,11 @@ def evaluate(model, samples, opt, output_path, label2cat, training=False, device
     return dict(out, val_metric=float(val_metric), s_per_sample=s_per_sample)
 
 
-def to_device(batch, device):
-    """The model keys of a numpy batch as fp32 tensors on ``device`` (pinned and
-    copied asynchronously to a GPU)."""
+def to_device(batch, device, keys=MODEL_KEYS):
+    """The model ``keys`` of a numpy batch as fp32 tensors on ``device``
+    (pinned and copied asynchronously to a GPU)."""
     out = {}
-    for k in MODEL_KEYS:
+    for k in keys:
         x = torch.as_tensor(np.asarray(batch[k], np.float32))
         out[k] = x.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else x
     return out
@@ -248,101 +248,41 @@ def train(opt, data, output_path, device=None):
     ``opt`` (e.g. ``config.shape_gen_opt()`` with overrides); checkpoints and
     event files go to ``output_path``.
 
-    A fresh run starts from ``weights.init_like_flax(seed=opt.seed)``;
-    ``opt.resume`` continues from ``latest.ckpt``. Each epoch walks the
-    loader order of ``data.batch_order``; a step is :func:`parallel.train.
-    train_step` with the stochastic depth of :func:`step_generator`. The
-    cadences are ``opt.freq``'s: losses reach the host and pass the finite
-    gate every ``print`` / ``scalar`` / ``ckpt_latest`` steps (and at each
-    epoch's end); ``latest.ckpt`` every ``ckpt_latest`` steps; the scalars
-    (the attention statistics with them) every ``scalar`` steps, to stdout
-    and, where ``opt.tb`` is set and TensorBoard is installed, to event
-    files; validation before the first step and every ``eval`` epochs, the
-    best CD kept as ``best.ckpt``; ``checkpoint/ep{N}.ckpt`` at the end.
-    ``opt.debug`` skips the first validation, the scalars and ``latest.ckpt``
-    (``shape_engine.py:460-549``).
+    A fresh run starts from ``weights.init_like_flax(seed=opt.seed)`` with
+    the pretrained weights that ``opt`` names staged over it
+    (:func:`checkpoint.stage_pretrained`: ``pretrain.depth``, else
+    ``arch.depth.pretrained``); ``opt.resume`` then continues from
+    ``latest.ckpt``, or ``opt.load`` restores a checkpoint's weights
+    (:func:`engine_base.start_run`). The loop and its cadences are
+    :func:`engine_base.train_loop`'s; a step is :func:`parallel.train.
+    train_step` with the stochastic depth of :func:`step_generator` and, at
+    the scalar cadence, the attention statistics; validation is
+    :func:`validate`, the best CD kept (``shape_engine.py:460-549``).
 
-    Returns a dict: ``graph`` and ``optimizer``, ``losses`` (every step's
-    loss), ``val`` (``(epoch, CD)`` of each validation), ``best_val``,
-    ``best_ep`` and ``it`` (the steps taken).
+    Returns :func:`engine_base.train_loop`'s dict.
     """
     dev = resolve_device(device)
     os.makedirs(output_path, exist_ok=True)
     if not opt.get("resume"):
         engine_base.clear_event_files(output_path)
-    seed, freq, debug, bs = opt.get("seed") or 0, opt.freq, opt.get("debug"), opt.batch_size
-    n_sdf = opt.training.get("n_sdf_points")
-    n_batches = len(data) // bs
-    if n_batches == 0:
-        raise ValueError(f"{len(data)} training samples fill no batch of {bs}")
+    seed, n_sdf = opt.get("seed") or 0, opt.training.get("n_sdf_points")
+    n_batches = engine_base.count_batches(data, opt.batch_size)
     graph = ShapeGraph.from_opt(opt, dtype=resolve_compute_dtype(opt, dev))
     graph = init_like_flax(graph, seed).to(dev).train()
+    checkpoint.stage_pretrained(graph, opt, "shape")
     optimizer = ptrain.make_optimizer(graph, opt.optim, n_batches, opt.max_epoch)
-    it, best_val, best_ep = 0, float("inf"), 1
-    if opt.get("resume"):
-        meta = engine_base.restore_checkpoint(os.path.join(output_path, "latest.ckpt"), graph, optimizer)
-        it, best_val, best_ep = meta["iter"], meta["best_val"], meta["best_ep"]
-        print(f"resumed at iteration {it} (best CD {best_val:.4f} @ epoch {best_ep})")
-    tb = None if debug else engine_base.scalar_writer(output_path, opt.get("tb") is not None)
-    gate, losses, vals = engine_base.LossGate(), [], []
+    start = engine_base.start_run(opt, output_path, graph, optimizer)
 
-    def flush(at):
-        got, s_it = gate.flush(at)
-        losses.extend(got)
-        return s_it
+    def step(batch, it, with_stats):
+        metrics, _ = ptrain.train_step(graph, optimizer, batch, opt, step_generator(seed, it, dev),
+                                       with_stats=with_stats)
+        return metrics
 
     def run_validation(ep):
         cd = validate(graph, data, opt, output_path, dev)["val_metric"]
-        vals.append((ep, cd))
-        if tb is not None:
-            tb.add_scalar("eval/cd", cd, ep)
-        return cd
+        return cd, {"eval/cd": cd}
 
-    print("TRAINING START")
-    if it == 0 and not debug:
-        run_validation(0)
-    ep_start, skip = divmod(it, n_batches)
-    ep = ep_start
-    for ep in range(ep_start, opt.max_epoch):
-        print(f"training epoch {ep + 1}")
-        gate.reset_clock()
-        for idx in data.batch_order(ep, bs, seed)[skip:]:
-            batch = to_device(data.batch(idx, ep, seed, n_sdf), dev)
-            scalar_it = it % freq.scalar == 0 and not debug
-            metrics, _ = ptrain.train_step(graph, optimizer, batch, opt, step_generator(seed, it, dev),
-                                           with_stats=scalar_it)
-            gate.note(metrics["loss_all"])
-            boundary = it % freq.print == 0 or it % freq.scalar == 0 or it % freq.ckpt_latest == 0
-            s_it = flush(it) if boundary else None
-            if it % freq.ckpt_latest == 0 and not debug:
-                engine_base.save_checkpoint(output_path, graph, optimizer, ep, it + 1, best_val, best_ep, latest=True)
-            if scalar_it:
-                scalars = {f"train/{k}": float(v) for k, v in metrics.items()}
-                print(f"scalars @ iter {it}: " + "  ".join(f"{k} {v:.6f}" for k, v in scalars.items()))
-                for k, v in scalars.items() if tb is not None else ():
-                    tb.add_scalar(k, v, it)
-            if it % freq.print == 0:
-                timing = "" if s_it is None else f"  s_it {s_it:.4f}"
-                print(f"Train Iter {it}/{n_batches * opt.max_epoch}: lr {optimizer.lr():.6f}  "
-                      f"loss {losses[-1]:.4f}{timing}")
-            if boundary:
-                gate.reset_clock()
-            it += 1
-        skip = 0
-        flush(it)
-        if (ep + 1) % freq.eval == 0:
-            print(f"validating epoch {ep + 1}")
-            cd = run_validation(ep + 1)
-            if cd < best_val:
-                best_val, best_ep = cd, ep + 1
-                engine_base.save_checkpoint(output_path, graph, optimizer, ep, it, best_val, best_ep,
-                                            latest=True, best=True)
-                print("Saving the current model as the best...")
-    flush(it)
-    engine_base.save_checkpoint(output_path, graph, optimizer, ep, it, best_val, best_ep)
-    if tb is not None:
-        tb.flush()
-    print("TRAINING DONE")
-    print("Best CD: %.4f @ epoch %d" % (best_val, best_ep))
-    return {"graph": graph, "optimizer": optimizer, "losses": losses, "val": vals, "best_val": best_val,
-            "best_ep": best_ep, "it": it}
+    return engine_base.train_loop(
+        opt, data, output_path, graph, optimizer, lambda idx, ep: to_device(data.batch(idx, ep, seed, n_sdf), dev),
+        step, run_validation, "CD", start,
+    )

@@ -1,7 +1,8 @@
 """Weights: the JAX package's trees -> this port's state dict, and seeded init.
 
-:func:`from_flax` takes the JAX shape graph's ``params`` / ``batch_stats``
-trees (nested dicts of numpy arrays) and returns the port's state dict. The
+:func:`from_flax` takes the JAX shape or depth graph's ``params`` /
+``batch_stats`` trees (nested dicts of numpy arrays) and returns the port's
+state dict. The
 port's module names are the reference torch layout, so the mapping is the
 inverse of the JAX package's torch importer (``runtime/checkpoint.py:227-336``):
 Flax Dense ``[in, out]`` becomes torch ``[out, in]``, HWIO convs become OIHW.
@@ -177,6 +178,19 @@ def map_shape_graph(impl_blocks=2, impl_mlp_linears=9):
     )
 
 
+def map_depth_graph():
+    """Every entry of the depth graph: ``dpt_depth`` and the intrinsics head,
+    whose projection the JAX ``DepthGraph`` keeps inside ``intr_head``."""
+    return map_dpt_depth("dpt_depth", ("dpt_depth",)) + map_intr_head("intr_head", "intr_proj", ("intr_head",))
+
+
+def omnidata_keys(state_dict):
+    """An omnidata file's ``model_state_dict`` (the DPT's keys, unprefixed, as
+    ``convert_torch_state_dict(graph="omnidata_dpt")`` reads it,
+    ``checkpoint.py:354``) -> the keys of a graph's ``dpt_depth``."""
+    return {f"dpt_depth.{k}": v for k, v in state_dict.items()}
+
+
 def convert(entries, params, batch_stats=None):
     """Apply mapping ``entries`` to the flax trees -> {torch key: fp32 tensor}."""
     trees = {"params": params, "batch_stats": batch_stats or {}}
@@ -190,12 +204,17 @@ def convert(entries, params, batch_stats=None):
     return sd
 
 
-def from_flax(params, batch_stats, impl_blocks=2, impl_mlp_linears=9):
-    """The JAX shape graph's ``params`` / ``batch_stats`` -> this port's state dict."""
+def from_flax(params, batch_stats, impl_blocks=2, impl_mlp_linears=9, graph="shape"):
+    """The JAX ``graph``'s (``"shape"`` or ``"depth"``) ``params`` /
+    ``batch_stats`` -> this port's state dict."""
+    if graph == "depth":
+        return convert(map_depth_graph(), params, batch_stats)
+    if graph != "shape":
+        raise ValueError(f"unknown graph {graph!r}")
     return convert(map_shape_graph(impl_blocks, impl_mlp_linears), params, batch_stats)
 
 
-def _unmapped(key, buffers):
+def unmapped(key, buffers):
     """Keys a converted state dict leaves to the module: BatchNorm counters,
     the implicit decoder's fixed sin-cos buffer, and the never-executed first
     residual unit of refinenet4."""
@@ -210,7 +229,7 @@ def load(module, state_dict):
     """``load_state_dict`` that allows only the unmapped keys to be missing."""
     res = module.load_state_dict(state_dict, strict=False)
     buffers = dict(module.named_buffers())
-    bad = [k for k in res.missing_keys if not _unmapped(k, buffers)]
+    bad = [k for k in res.missing_keys if not unmapped(k, buffers)]
     if bad or res.unexpected_keys:
         raise KeyError(f"missing {bad[:5]}, unexpected {res.unexpected_keys[:5]}")
     return module
