@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
 against its plain version, run the full-size main path and export a mesh,
 run the scoring and evaluation path at full size, then shape training, the
-accuracy gate, depth pretraining and its staging into shape training.
+accuracy gate, depth pretraining and its staging into shape training, and
+the CLIs on datasets written to disk, in one process and in two.
 
     python3 chip_smoke.py
 
@@ -92,7 +93,27 @@ Phases (one line or more each, any failure exits non-zero):
      equal the checkpoint's bit for bit and the rest ``init_like_flax``'s;
      1 epoch of 3 steps whose validations launch K1 and K2, nothing plain;
  17. ``--load`` of that run's ``latest.ckpt`` into a fresh run: its first
-     step starts from those weights with an optimizer that took no step.
+     step starts from those weights with an optimizer that took no step;
+ 18. the held-out analytic tree on disk (``data.analytic.generate_dataset``,
+     4 + 2 objects x 8 views at 224^2): its loader's samples equal phase
+     11's in-memory split bit for bit; which image decoder ran;
+ 19. ``python -m zeroshape_tpu_torch.train --task=shape`` on the tree (in
+     this process): 1 epoch of 3 steps at batch 8, validation on the 4 seen
+     and 16 held-out views before and after; s/step, the loader's wait and
+     its share of the steps' time, the launches of validation and of the
+     train-split metrics (K1 and K2 in both); ``train/dist_acc`` and
+     ``eval/dist_acc`` finite;
+ 20. ``python -m zeroshape_tpu_torch.evaluate --resume`` of that run in the
+     final posture with brute force: the result files parsed back,
+     ``cd_cat.txt`` with ``prim``, ``ho0`` and ``ho1``; s/sample;
+ 21. Pix3D (256^2 images: the loader resizes), OCRTOC and OmniObject3D
+     trees of analytic renders, PNG only, each through the evaluate CLI in
+     the validation posture (coarse-to-fine decode, pruned brute force);
+ 22. two ranks on the one card (``torch.distributed.run``, gloo by the
+     backend rule): ``python -m zeroshape_tpu_torch.dist_check``'s fp32 step
+     against one rank's (each gradient leaf within 1e-4 of its norm, or 4x
+     the one-rank step's card-vs-CPU difference) and its evaluation (CD
+     1e-3); the evaluate CLI on two ranks against phase 20 (CD 1e-3 a sample).
 Then one JSON line of kernel numbers, the nvidia-smi line again, and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -1195,6 +1216,316 @@ def load_run(dev, data, ckpt):
         fail(f"--load did not start from the checkpoint's weights with a fresh optimizer: {found}")
 
 
+# ---------------------------------------------------------------------------
+# datasets on disk, the CLIs and two ranks (phases 18-22)
+# ---------------------------------------------------------------------------
+
+TREE = dict(n_objects=4, n_views=8, H=224, seed=0, n_pc_points=10000, n_sdf_points=20000, val_views=1,
+            holdout_objects=2)
+
+
+def write_tree(root, data):
+    """Phase 18: the held-out analytic tree (4 + 2 objects x 8 views) on disk;
+    its loader's samples must equal the in-memory split of phase 11 (the same
+    draws for the seen objects) bit for bit, but for the category label."""
+    from zeroshape_tpu_torch import config
+    from zeroshape_tpu_torch.data import analytic, native
+    from zeroshape_tpu_torch.data.synthetic import SyntheticDataset
+
+    t0 = time.perf_counter()
+    analytic.generate_dataset(root, **TREE)
+    seconds = time.perf_counter() - t0
+    opt = config.Config({"H": 224, "W": 224, "seed": 0, "training": {"n_sdf_points": 4096},
+                         "data": {"root": root, "synthetic": {"subset": "analytic", "percentage": 1}}})
+    train, test = SyntheticDataset(opt, split="train"), SyntheticDataset(opt, split="test")
+    decoder = "zsdl" if native.available() else f"the port's PNG decoder (zsdl: {native.unavailable_reason().splitlines()[0]})"
+    t0 = time.perf_counter()
+    pairs = [(train[i], data.sample(i, 0, 0, 4096)) for i in (0, 13, 27)]
+    load_s = (time.perf_counter() - t0) / 3
+    pairs += [(test[16 + i], data.val[i]) for i in range(len(data.val))]
+    bad = [k for got, want in pairs for k in want if k not in ("idx", "category_label", "dpc")
+           and not np.array_equal(got[k], want[k])]
+    bad += ["dpc" for got, want in pairs if "dpc" in want and not np.array_equal(got["dpc"]["points"],
+                                                                                 want["dpc"]["points"])]
+    print(f"dataset tree: {len(train)} training and {len(test)} validation views (categories {test.label2cat}) "
+          f"written in {seconds:.1f} s; images decoded by {decoder}, {load_s * 1e3:.1f} ms a training sample; "
+          f"{len(pairs)} samples against the in-memory split: {len(bad)} keys differ")
+    if len(train) != 28 or len(test) != 20 or test.label2cat != ["ho0", "ho1", "prim"] or bad:
+        fail(f"the tree's loader: {len(train)} / {len(test)} samples, {test.label2cat}, differing {bad[:5]}")
+
+
+def cli_argv(root, out):
+    """The train CLI's arguments of phase 19 (and of its two-rank run in phase 22)."""
+    return ["--task=shape", f"--data.root={root}", f"--output_path={out}", "--max_epoch=1", "--tb=null",
+            "--freq.print=1", "--freq.scalar=1", "--freq.ckpt_latest=1000", "--freq.eval=1"]
+
+
+def train_cli(root, out):
+    """Phase 19: ``python -m zeroshape_tpu_torch.train --task=shape`` on the
+    tree: 1 epoch of 3 steps at batch 8, validation on the 20 views before
+    and after, the train-split metrics every step. Returns (the validation and
+    train-metric launches summed, the run's result)."""
+    from zeroshape_tpu_torch import train
+    from zeroshape_tpu_torch.runtime import shape_engine
+
+    argv = cli_argv(root, out)
+    metric_calls, metrics_fn = [], shape_engine.train_metrics
+
+    def counted(*args, **kwargs):
+        reset_counts()
+        got = metrics_fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        metric_calls.append(launch_counts())
+        return got
+
+    shape_engine.train_metrics = counted
+    try:
+        with instrumented(shape_engine, "validate") as (steps, vals):
+            t0 = time.perf_counter()
+            res = train.main(argv)
+            seconds = time.perf_counter() - t0
+    finally:
+        shape_engine.train_metrics = metrics_fn
+    s_step = [s for s, _ in steps]
+    wait = res["loader_wait"]
+    share = wait / (wait + sum(s_step))
+    in_val, in_metrics = summed(vals), summed(metric_calls)
+    train_scalars = [s for _, s in res["train_scalars"]]
+    print(f"train CLI on the tree (shape_gen, batch 8, bf16): {len(s_step)} steps, {[round(x, 4) for x in s_step]} "
+          f"s/step (median {np.median(s_step):.4f}); waited {wait:.4f} s for the loader, {share:.1%} of the steps' "
+          f"time; the run {seconds:.1f} s; validation CD {res['val']}")
+    print(f"train CLI scalars: train/dist_acc {[round(s['train/dist_acc'], 5) for s in train_scalars]}, "
+          f"eval/dist_acc {[round(s['eval/dist_acc'], 5) for _, s in res['val_scalars']]}; launches in "
+          f"{len(vals)} validations {in_val}, in {len(metric_calls)} train-split metrics {in_metrics}")
+    finite = all(np.isfinite(s.get("train/dist_acc", np.nan)) for s in train_scalars) and all(
+        np.isfinite(s["eval/dist_acc"]) for _, s in res["val_scalars"])
+    if len(s_step) != 3 or not finite or len(train_scalars) != 3 or len(vals) != 2:
+        fail(f"train CLI: {len(s_step)} steps, scalars {train_scalars}, validations {res['val_scalars']}")
+    if not in_val["K1"] or not in_val["K2"] or not in_metrics["K1"] or not in_metrics["K2"] or in_val["plain"]:
+        fail(f"train CLI launches: validation {in_val}, train-split metrics {in_metrics} (want K1 and K2)")
+    return summed([in_val, in_metrics]), res
+
+
+def read_results(out, dataset):
+    """``{idx: CD}`` of ``{dataset}_full_results.txt`` and the rows of ``cd_cat.txt``."""
+    rows = open(os.path.join(out, f"{dataset}_full_results.txt")).read().split("\n")[1:]
+    cds = {int(r.split("\t")[0]): float(r.split("\t")[1]) for r in rows}
+    cats = [line.split() for line in open(os.path.join(out, "cd_cat.txt")).read().splitlines()[1:]]
+    return cds, cats
+
+
+def evaluate_cli(argv, what, n):
+    """``python -m zeroshape_tpu_torch.evaluate`` in this process; returns
+    (its result, launches, seconds a sample)."""
+    from zeroshape_tpu_torch import evaluate
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = evaluate.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n_launch = launch_counts()
+    print(f"evaluate CLI, {what}: {len(res['acc'])} samples, CD {res['val_metric']:.6f}, {seconds:.1f} s with the "
+          f"graph's set-up, {np.mean(res['s_per_sample']):.4f} s/sample in the loop; launches {n_launch}")
+    if len(res["acc"]) != n or not all(np.isfinite(res[k]).all() for k in ("acc", "comp", "f_score")):
+        fail(f"evaluate CLI, {what}: {len(res['acc'])} samples, metrics {res['acc']}")
+    return res, n_launch
+
+
+def evaluate_tree(root, out):
+    """Phase 20: the evaluate CLI with ``--resume`` of phase 19's run (its
+    ``best.ckpt`` in ``out``, where the result files go too), final posture
+    with brute force, at eval batch 2; result files parsed back."""
+    argv = ["--task=shape", f"--data.root={root}", f"--output_path={out}", "--resume", "--eval.brute_force",
+            "--eval.batch_size=2"]
+    res, n = evaluate_cli(argv, "the tree, --resume, final posture with brute force", 20)
+    cds, cats = read_results(out, "synthetic")
+    print(f"evaluate CLI: files in the run's directory {sorted(os.listdir(out))}; cd_cat.txt {cats}")
+    if sorted(c[4] for c in cats) != ["ho0", "ho1", "prim"] or [int(c[3]) for c in cats] != [8, 8, 4]:
+        fail(f"cd_cat.txt rows {cats}")
+    if sorted(cds) != list(range(20)) or max(abs(cds[i] - (res["acc"][i] + res["comp"][i]) / 2) for i in cds) > 6e-5:
+        fail("the full results do not hold the returned metrics")
+    if n["K1"] != 20 or n["K2"] != 288 * 20 or n["K3"]:
+        fail(f"final posture launches {n}, expected K1 20, K2 {288 * 20}, K3 0")
+    return res, n
+
+
+def write_layout_trees(root):
+    """Phase 21's trees from analytic renders, PNG only: Pix3D (images and
+    masks at 256^2, so the loader resizes to 224), OCRTOC (every 5th of 10
+    views) and OmniObject3D (4 views)."""
+    import json
+
+    from zeroshape_tpu_torch.data import analytic
+    from zeroshape_tpu_torch.data.common import write_png
+
+    def render(size, k):
+        rng = np.random.default_rng(100 + k)
+        sdf, albedo = analytic.make_sdf(analytic.SDF_KINDS[k % 5], rng)
+        f = 1.3875 * size
+        K = np.array([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1]], np.float32)
+        pose = analytic.look_at_pose(analytic._camera_ring(8, rng)[k % 8])
+        rgb, depth, _ = analytic.render_scene(sdf, albedo, K, pose, size, size)
+        return (rgb * 255).astype(np.uint8), depth, pose, analytic.surface_points(sdf, 10000, rng)
+
+    base = os.path.join(root, "Pix3D")
+    for k, c in enumerate(("chair", "table")):
+        for sub in ("lists", f"annotation/{c}", f"img_processed/{c}", f"mask_processed/{c}", f"pointclouds/{c}/m"):
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        rgb, depth, pose, pc = render(256, k)
+        write_png(os.path.join(base, f"img_processed/{c}/0000.png"), rgb)
+        write_png(os.path.join(base, f"mask_processed/{c}/0000.png"), ((depth > 0) * 255).astype(np.uint8))
+        with open(os.path.join(base, f"annotation/{c}/0000.json"), "w") as f:
+            json.dump({"img": f"img/{c}/0000.png", "mask": f"mask/{c}/0000.png", "model": f"model/{c}/m/model.obj",
+                       "rot_mat": pose[:, :3].tolist()}, f)
+        np.save(os.path.join(base, f"pointclouds/{c}/m/model.npy"), pc)
+        with open(os.path.join(base, "lists", f"{c}_test.txt"), "w") as f:
+            f.write("0000")
+    for dirname, depth_dir, n in (("Ocrtoc", "depth_np", 10), ("OmniObject3D", "depth", 4)):
+        base = os.path.join(root, dirname)
+        for sub in ("lists", "images_processed/mug", f"{depth_dir}/mug", "camera_data/extr/mug", "pointclouds/mug"):
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        for i in range(n):
+            rgb, depth, pose, pc = render(224, 2 + i)
+            write_png(os.path.join(base, f"images_processed/mug/mug1_{i:03d}.png"), rgb)
+            np.save(os.path.join(base, f"{depth_dir}/mug/mug1_{i:03d}.npy"), depth)
+            np.save(os.path.join(base, f"camera_data/extr/mug/mug1_{i:03d}.npy"), pose)
+        np.save(os.path.join(base, "pointclouds/mug/mug1.npy"), pc)
+        with open(os.path.join(base, "lists", "mug_test.list"), "w") as f:
+            f.write("\n".join(f"mug1_{i:03d}.png" for i in range(n)))
+
+
+def calibrated_checkpoint(root, out):
+    """Phase 19's ``best.ckpt`` with its random field calibrated on the tree's
+    first validation view (``recon.calibrate_random_field`` at sharpen 1, the
+    CLI's): a trained field's active cells, so the coarse-to-fine decode keeps
+    within its capacity. Returns the file's path."""
+    from zeroshape_tpu_torch import config, recon
+    from zeroshape_tpu_torch.data.synthetic import SyntheticDataset
+    from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+
+    opt = config.shape_gen_opt()
+    graph = ShapeGraph.from_opt(opt, dtype=torch.bfloat16)
+    graph.load_state_dict(torch.load(os.path.join(out, "best.ckpt"), map_location="cpu", weights_only=True)["graph"])
+    model = recon.ReconModel(graph.cuda().eval(), None, 1.0, torch.device("cuda")).repack()
+    opt.data.root = root
+    view = SyntheticDataset(opt, split="test")[0]
+    shift, gain, n = recon.calibrate_random_field(model, {k: view[k][None] for k in ("rgb_input_map", "mask_input_map")})
+    path = os.path.join(out, "calibrated.ckpt")
+    torch.save({"graph": graph.state_dict()}, path)
+    print(f"calibrated phase 19's weights: output layer shifted by {-shift:.4f}, scaled by {gain:g}: {n} active cells")
+    del model, graph
+    torch.cuda.empty_cache()
+    return path
+
+
+def evaluate_layouts(root, out):
+    """Phase 21: the evaluate CLI on the Pix3D, OCRTOC and OmniObject3D trees
+    with :func:`calibrated_checkpoint`'s weights, in the validation posture
+    (coarse-to-fine decode, pruned brute force)."""
+    ckpt = calibrated_checkpoint(root, out)
+    counts = []
+    for dataset, extra, n in (("pix3d", ["--data.pix3d.cat=chair,table"], 2), ("ocrtoc", ["--data.ocrtoc.erode_mask=10"], 2),
+                              ("omniobj3d", [], 4)):
+        dump = os.path.join(out, dataset)
+        argv = ["--task=shape", f"--data.root={root}", f"--data.dataset_test={dataset}", f"--output_path={dump}",
+                f"--ckpt={ckpt}", "--eval.brute_force", "--eval.hier_final", "--eval.bf_prune=[1024,128]",
+                "--eval.batch_size=2", "--eval.vox_res=128"] + extra
+        _, n_launch = evaluate_cli(argv, f"{dataset} tree, validation posture", n)
+        cds, cats = read_results(dump, dataset)
+        want = {"K1": 2 * n, "K2": 6 * n, "K3": 72 * n, "plain": 0}
+        if len(cds) != n or n_launch != want:
+            fail(f"{dataset}: {len(cds)} result rows, launches {n_launch}, expected {want}")
+        counts.append(n_launch)
+    return summed(counts)
+
+
+def two_ranks(root, out, one_rank, cli_run):
+    """Phase 22: two ranks on the one card (gloo by the backend rule) in one
+    launch of ``dist_check --full``: one fp32 step of the shipped model at
+    224^2 (TF32 off, a global batch of 4) and an evaluation, then the train
+    CLI with phase 19's arguments (shape_gen, bf16, batch 8; validation at
+    eval batch 2) on the same ranks. Held against one rank: the step's well-conditioned pieces
+    (``dist_check.parts``) each leaf within 1e-4 of its norm + 1e-7 of the
+    piece's gradient, their outputs and statistics within 1e-5; the whole
+    step the same, or 4x the card-vs-CPU difference of the one-rank step
+    where that is larger (train-mode BatchNorm amplifies rounding); the
+    evaluation's CD within 1e-3; the train CLI against phase 19's run, its
+    first loss (the same weights on the same batch) within 1e-2 and first
+    validation within 1e-3 (bf16), ``latest.ckpt`` with the same tensors,
+    each within AdamW's reach of phase 19's (3 lr a step). Then the evaluate
+    CLI under two ranks against phase 20's one rank: CD within 1e-3 a sample."""
+    from zeroshape_tpu_torch import config, dist_check
+
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2", "-m"]
+    one, two, cpu, two_train = (os.path.join(out, d) for d in ("dc1", "dc2", "dc_cpu", "two_rank_train"))
+    t0 = time.perf_counter()
+    # validation at eval batch 2 (one view a rank; phase 19's is 1): the surface draws follow each sample's index
+    argv = ["zeroshape_tpu_torch.dist_check", two, "--full", "train"] + cli_argv(root, two_train) + ["--eval.batch_size=2"]
+    launch = subprocess.run(run + argv, env=env, capture_output=True, text=True, timeout=900)
+    if launch.returncode:
+        fail(f"two-rank dist_check and train CLI failed:\n{launch.stdout[-3000:]}\n{launch.stderr[-3000:]}")
+    launch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dist_check.main([one, "--full"])
+    one_s = time.perf_counter() - t0
+    dist_check.main([cpu, "--full", "--device=cpu"])
+    ref, got, spread = (torch.load(os.path.join(d, "step.pt"), weights_only=True) for d in (one, two, cpu))
+    bad, bad_bn, within, worst = dist_check.disagreements(ref, got, spread, tol=1e-4, bn_tol=1e-4)
+    pieces = []
+    ref_p, got_p = (torch.load(os.path.join(d, "parts.pt"), weights_only=False) for d in (one, two))
+    for name in ref_p:
+        p_bad, p_bad_bn, _, p_worst = dist_check.disagreements(ref_p[name], got_p[name], tol=1e-4, bn_tol=1e-5)
+        o_gap = float(np.linalg.norm(got_p[name]["out"] - ref_p[name]["out"]) / np.linalg.norm(ref_p[name]["out"]))
+        pieces.append((name, p_worst, o_gap, p_bad + p_bad_bn))
+    e1, e2 = (torch.load(os.path.join(d, "eval.pt"), weights_only=True) for d in (one, two))
+    eval_gap = float(((e1["acc"] + e1["comp"]) / 2 - (e2["acc"] + e2["comp"]) / 2).abs().max())
+    print(f"two ranks, one card ({[ln for ln in launch.stdout.splitlines() if 'backend' in ln]}): dist_check --full "
+          f"and the train CLI in {launch_s:.1f} s (one rank's dist_check {one_s:.1f} s); step loss {ref['loss']:.6f} "
+          f"(1 rank) / {got['loss']:.6f} (2 ranks); pieces (largest |d|/|leaf|, output gap): "
+          + ", ".join(f"{n} {w:.3e} {o:.3e}" for n, w, o, _ in pieces)
+          + f"; whole step: largest |d|/|leaf| {worst:.3e}, {within:.1%} of {len(ref['grads'])} leaves within 1e-4 "
+          f"alone, outside the bound {bad[:5]}, statistics {bad_bn[:5]}; evaluation's CD gap {eval_gap:.3e}")
+    if (bad or bad_bn or any(b or o > 1e-5 for _, _, o, b in pieces) or "backend gloo" not in launch.stdout
+            or eval_gap > 1e-3 or abs(got["loss"] - ref["loss"]) > 1e-4 * abs(ref["loss"])):
+        fail("two ranks disagree with one")
+
+    run2 = torch.load(os.path.join(two, "train.pt"), weights_only=False)
+    a, b = (torch.load(os.path.join(d, "latest.ckpt"), map_location="cpu", weights_only=True, mmap=True)
+            for d in (out, two_train))
+    lr = config.shape_gen_opt().optim.lr
+    reach = [float((b["graph"][k].float() - v.float()).abs().max()) / lr for k, v in a["graph"].items()
+             if v.is_floating_point() and "running" not in k]
+    loss_gap = abs(run2["losses"][0] - cli_run["losses"][0]) / cli_run["losses"][0]
+    val_gap = abs(run2["val"][0][1] - cli_run["val"][0][1])
+    print(f"train CLI on two ranks: losses {[round(x, 6) for x in run2['losses']]} (1 rank: "
+          f"{[round(x, 6) for x in cli_run['losses']]}), first loss off by {loss_gap:.3e} of it; validation CD "
+          f"{[(e, round(v, 6)) for e, v in run2['val']]} (1 rank: {[(e, round(v, 6)) for e, v in cli_run['val']]}); "
+          f"latest.ckpt: {len(reach)} tensors, largest gap to one rank's {max(reach):.3f} lr after {run2['it']} steps")
+    if (run2["it"] != cli_run["it"] or len(run2["losses"]) != len(cli_run["losses"]) or loss_gap > 1e-2
+            or not np.isfinite(run2["losses"]).all() or val_gap > 1e-3 or a["graph"].keys() != b["graph"].keys()
+            or (b["iter"], b["best_ep"]) != (a["iter"], a["best_ep"]) or max(reach) > 3 * run2["it"]):
+        fail("the train CLI on two ranks does not follow one rank's run")
+    del a, b
+    shutil.rmtree(two_train)
+
+    dump = os.path.join(out, "two_rank_eval")
+    t0 = time.perf_counter()
+    launch = subprocess.run(run + ["zeroshape_tpu_torch.evaluate", "--task=shape", f"--data.root={root}",
+                                   f"--output_path={dump}", f"--ckpt={os.path.join(out, 'best.ckpt')}",
+                                   "--eval.brute_force", "--eval.batch_size=2"], env=env, capture_output=True,
+                            text=True, timeout=900)
+    if launch.returncode:
+        fail(f"two-rank evaluate CLI failed:\n{launch.stdout[-3000:]}\n{launch.stderr[-3000:]}")
+    cds, _ = read_results(dump, "synthetic")
+    gap = max(abs(cds[i] - (one_rank["acc"][i] + one_rank["comp"][i]) / 2) for i in range(len(one_rank["acc"])))
+    print(f"evaluate CLI on two ranks (one card): {len(cds)} rows in {time.perf_counter() - t0:.1f} s, files "
+          f"{sorted(os.listdir(dump))}; largest CD gap to one rank {gap:.3e} (printed at 4 decimals)")
+    if len(cds) != len(one_rank["acc"]) or gap > 1e-3:
+        fail(f"two-rank evaluation off one rank's by {gap}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1269,10 +1600,26 @@ def main():
     finally:
         shutil.rmtree(out)
 
+    root, out = tempfile.mkdtemp(), tempfile.mkdtemp()  # the trees; the CLI run's checkpoints (~2.3 GB each)
+    try:
+        write_tree(root, data)
+        cli_val, cli_run = train_cli(root, out)
+        cli_run = {k: cli_run[k] for k in ("losses", "val", "it")}  # the trained graph and optimizer go
+        torch.cuda.empty_cache()
+        tree_res, tree_eval = evaluate_tree(root, out)
+        write_layout_trees(root)
+        layout_eval = evaluate_layouts(root, out)
+        two_ranks(root, out, tree_res, cli_run)
+    finally:
+        shutil.rmtree(root)
+        shutil.rmtree(out)
+
     # launches: the sum over the path runs (main path, final and validation
     # posture, the validations of the training run, the gate and the staged
-    # run), each counted from 0
-    launches = {k: main_launches * (k == "K1") + sum(n[k] for n in (final, val, train_val, gate_val, staged_val))
+    # run, the train CLI's validations and train-split metrics, the evaluate
+    # CLI on the tree and on the three layouts), each counted from 0
+    launches = {k: main_launches * (k == "K1") + sum(n[k] for n in (final, val, train_val, gate_val, staged_val,
+                                                                    cli_val, tree_eval, layout_eval))
                 for k in ("K1", "K2", "K3")}
     k1["launches"] = launches["K1"]
     kernels = [k1]

@@ -130,9 +130,7 @@ TINY_H = 32
 TINY = [f"--image_size=[{TINY_H},{TINY_H}]", "--arch.latent_dim=64", "--arch.impl.n_channels=64",
         "--arch.impl.mlp_layers=4", "--arch.impl.skip_in=[2]", "--arch.depth.n_blocks=2", "--batch_size=2",
         "--max_epoch=2", "--seed=3", "--training.n_sdf_points=64", "--optim.fix_dpt", "--tb=null", "--freq.print=1",
-        "--freq.scalar=1", "--freq.ckpt_latest=3", "--eval.vox_res=16", "--eval.num_points=200", "--freq.eval=1",
-        "--data.analytic.n_objects=2", "--data.analytic.n_views=3", "--data.analytic.seed=0",
-        "--data.analytic.n_pc_points=300", "--data.analytic.n_sdf_points=400"]
+        "--freq.scalar=1", "--freq.ckpt_latest=3", "--eval.vox_res=16", "--eval.num_points=200", "--freq.eval=1"]
 
 
 def _counts():
@@ -144,18 +142,24 @@ def _counts():
 @pytest.mark.gpu
 def test_tiny_decoder_trains_and_validates_on_the_card(tmp_path):
     """A decoder K1 is not built for (C=64) trains and validates on the card:
-    its validations decode plainly, score through K2 and launch no K1."""
+    its validations and train-split metrics decode plainly, score through K2
+    and launch no K1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from zeroshape_tpu_torch.data.analytic import generate_dataset
     from zeroshape_tpu_torch.train import main as train_main
 
+    generate_dataset(str(tmp_path / "data"), n_objects=2, n_views=3, H=TINY_H, seed=0, n_pc_points=300,
+                     n_sdf_points=400)
     before = _counts()
-    res = train_main(TINY + [f"--output_path={tmp_path}"])
+    res = train_main(TINY + [f"--data.root={tmp_path / 'data'}", f"--output_path={tmp_path / 'run'}"])
     torch.cuda.synchronize()
     k1, k2, plain = (a - b for a, b in zip(_counts(), before))
     assert res["it"] == 4 and np.isfinite(res["losses"]).all()
     assert [ep for ep, _ in res["val"]] == [0, 1, 2] and np.isfinite([cd for _, cd in res["val"]]).all()
-    assert k1 == 0 and k2 > 0 and plain == 3 * 2  # 3 validations of 2 samples at eval batch 1, a dense decode each
+    # 3 validations of 2 samples at eval batch 1 and the train-split metrics of
+    # 4 steps (1 sample each), a dense decode each
+    assert k1 == 0 and k2 > 0 and plain == 3 * 2 + 4
 
 
 @pytest.mark.gpu

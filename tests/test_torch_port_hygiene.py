@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from __graft_entry__ import _full_opt, _tiny_opt
-from zeroshape_tpu_torch import camera, config, recon
+from zeroshape_tpu_torch import camera, config, dist_check, recon
+from zeroshape_tpu_torch import evaluate as evaluate_cli
 from zeroshape_tpu_torch.metrics import eval3d
 from zeroshape_tpu_torch.runtime import depth_engine, shape_engine
 from zeroshape_tpu_torch.models import resolve_compute_dtype
@@ -63,6 +64,8 @@ def test_port_sources_name_no_jax_package():
         lambda: shape_engine.train(config.shape_gen_opt(32), None, "unused"),
         lambda: depth_engine.train(config.depth_gen_opt(32), None, "unused"),
         lambda: depth_engine.evaluate(None, [], config.depth_gen_opt(32), "unused"),
+        lambda: evaluate_cli.main(["--task=shape", "--data.root=unused"]),
+        lambda: dist_check.main(["unused"]),
     ],
 )
 def test_default_device_needs_cuda(entry, monkeypatch):

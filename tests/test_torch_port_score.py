@@ -29,12 +29,13 @@ from zeroshape_tpu.ops import marching_cubes as jmc
 from zeroshape_tpu.runtime.shape_engine import Runner
 from zeroshape_tpu_torch import camera, config, recon
 from zeroshape_tpu_torch.data import analytic
+from zeroshape_tpu_torch.data.base import default_collate
 from zeroshape_tpu_torch.metrics import eval3d as te
 from zeroshape_tpu_torch.ops import marching_cubes as tmc
 from zeroshape_tpu_torch.runtime import shape_engine
 
 from test_torch_harness import close, np32, t
-from test_torch_harness import give_memory_back  # noqa: F401 (autouse: frees the module's memory at its end)
+from test_torch_harness import few_threads, give_memory_back  # noqa: F401 (autouse: two threads; memory back at the end)
 
 ROT = (6, 6, 4)  # 144 rotations
 
@@ -197,14 +198,15 @@ def test_evaluate_matches_jax_scoring(evaluator_setup, tmp_path, vox, training, 
     thresholds = tuple(opt.eval.f_thresholds)
     res = shape_engine.evaluate(model, samples, opt, str(tmp_path), ["prim"], training=training, device="cpu")
 
-    # the same predicted clouds: the same posture and generator, batch after batch
+    # the same predicted clouds: the same posture and a generator a sample, keyed on its index
     hier = shape_engine.use_hier_decode(opt, training)
     assert hier == (vox == 32 and training)
-    gen = torch.Generator().manual_seed(shape_engine.SAMPLE_SEED)
-    for b, batch in enumerate(shape_engine._batches(samples, opt.eval.batch_size)):
-        _, _, pred, n_active = recon.reconstruct_batch(model, batch, gen, vox, None, 256, (-1.5, 1.5), hier)
+    bs = opt.eval.batch_size
+    for b, batch in enumerate(default_collate(samples[i: i + bs]) for i in range(0, len(samples), bs)):
+        gens = shape_engine.sample_generators(batch["idx"], "cpu")
+        _, _, pred, n_active = recon.reconstruct_batch(model, batch, gens, vox, None, 256, (-1.5, 1.5), hier)
         assert (n_active is None) == (not hier)
-        gt_view = je.transform_gt_to_view(jnp.asarray(batch["dpc_points"]), jnp.asarray(batch["pose_gt"]))
+        gt_view = je.transform_gt_to_view(jnp.asarray(batch["dpc"]["points"]), jnp.asarray(batch["pose_gt"]))
         sl = slice(2 * b, 2 * b + len(pred))
         if extra.get("brute_force"):
             for i in range(len(pred)):

@@ -47,29 +47,29 @@ from zeroshape_tpu_torch.runtime import checkpoint, depth_engine, engine_base
 from zeroshape_tpu_torch.train import main as train_main
 from zeroshape_tpu_torch.train import options as train_options
 
-from test_torch_harness import give_memory_back  # noqa: F401 (autouse: frees the module's memory at its end)
+from test_torch_harness import few_threads, give_memory_back  # noqa: F401 (autouse: two threads; memory back at the end)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H = 32
 DEPTH = [f"--image_size=[{H},{H}]", "--batch_size=2", "--max_epoch=1", "--seed=3", "--tb=null", "--freq.print=1",
-         "--freq.scalar=1", "--freq.ckpt_latest=1000", "--freq.eval=1", "--eval.batch_size=2", "--device=cpu",
-         "--data.analytic.n_objects=2", "--data.analytic.n_views=2", "--data.analytic.seed=0",
-         "--data.analytic.n_pc_points=300", "--data.analytic.n_sdf_points=400"]
+         "--freq.scalar=1", "--freq.ckpt_latest=1000", "--freq.eval=1", "--eval.batch_size=2", "--device=cpu"]
 DEPTH_SUBTREES = ("dpt_depth.", "intr_head.", "intr_proj.")
 
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """One epoch of one depth step (2 objects x 1 training view, batch 2)
-    through the CLI, validated before and after, then the final metrics
-    (``best_val.txt``)."""
+    through the CLI on an analytic tree the port writes, validated before and
+    after, then the final metrics (``best_val.txt``)."""
+    from zeroshape_tpu_torch.data import analytic
+
+    root = tmp_path_factory.mktemp("tree")
+    analytic.generate_dataset(str(root), n_objects=2, n_views=2, H=H, seed=0, n_pc_points=300, n_sdf_points=400)
     out = tmp_path_factory.mktemp("depth")
     try:
-        res = train_main(["--task=depth"] + DEPTH + [f"--output_path={out}"])
+        res = train_main(["--task=depth"] + DEPTH + [f"--data.root={root}", f"--output_path={out}"])
         os.remove(out / "checkpoint" / "ep0.ckpt")  # ~1.7 GB that no test reads
         opt = train_options(["--task=depth"] + DEPTH)
-        from zeroshape_tpu_torch.data import analytic
-
         data = analytic.train_samples(2, 2, H, 0, 300, 400)
         final = depth_engine.evaluate(res["graph"], data.val, opt, str(out), training=False, device="cpu")
         yield out, res, final
@@ -245,7 +245,7 @@ def _get(opt, path):
     return opt
 
 
-# data-loader keys of the YAML files that the port's analytic data does not read
+# keys of the YAML files that a preset need not match: where the data are and the loader's settings
 NOT_READ = {("data", "root"), ("data", "num_workers"), ("data", "max_img_cat"), ("data", "bgcolor"),
             ("data", "pix3d", "cat"), ("data", "ocrtoc", "cat"), ("data", "ocrtoc", "erode_mask"),
             ("data", "synthetic", "percentage"), ("output_root",)}

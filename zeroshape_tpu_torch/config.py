@@ -118,7 +118,10 @@ def eval_opt(opt, **eval_overrides):
         "f_thresholds": [0.005, 0.01, 0.02, 0.05, 0.1, 0.2],
         **eval_overrides,
     }
-    opt.data = {"dataset_test": "synthetic", "num_classes_test": 15}
+    opt.data = {"root": "data", "num_classes_test": 15, "max_img_cat": None, "dataset_train": "synthetic",
+                "dataset_test": "synthetic", "num_workers": 6, "bgcolor": 1, "pix3d": {"cat": None},
+                "ocrtoc": {"cat": None, "erode_mask": None},
+                "synthetic": {"subset": "objaverse_LVIS,ShapeNet55", "percentage": 1}}
     return opt
 
 
@@ -147,7 +150,7 @@ def synthetic_image(H, seed=0, B=1):
 
 def shape_gen_opt(H=224):
     """``full_opt`` under the recipe of ``options/shape_gen.yaml`` over
-    ``options/shape.yaml``, for the analytic data the repo makes in memory:
+    ``options/shape.yaml``, on the analytic tree of ``/tmp/gen_data``:
     batch 8, 4096 SDF points, loss weights shape 1 / depth 1 / intr 10,
     lr = lr_ft = 1e-4, weight decay 0.05, the depth head initialised at
     0.001, validation at vox 128, batch 1, without brute force."""
@@ -163,7 +166,8 @@ def shape_gen_opt(H=224):
         "training": {"n_sdf_points": 4096},
         "loss_weight": {"shape": 1, "depth": 1, "intr": 10},
         "optim": {"lr": 1e-4, "lr_ft": 1e-4},
-        "data": {"dataset_train": "synthetic", "synthetic": {"subset": "analytic"}},
+        "data": {"root": "/tmp/gen_data", "num_workers": 4, "dataset_train": "synthetic",
+                 "synthetic": {"subset": "analytic"}},
         "tb": {"num_images": [4, 8]},
         "freq": {"print": 200, "print_eval": 20, "scalar": 500, "vis": 5000, "save_vis": 20000,
                  "ckpt_latest": 500, "eval": 50},
@@ -183,8 +187,10 @@ def depth_opt(H=224):
         "output_root": "output", "resume": False, "seed": 0,
         "arch": {"dtype": "auto", "depth": {"pretrained": "weights/omnidata_dpt_depth_v2.ckpt"}},
         "eval": {"batch_size": 44, "n_vis": 50, "depth_cap": None, "d_thresholds": [1.02, 1.05, 1.1, 1.2]},
-        "data": {"num_classes_test": 15, "dataset_train": "synthetic", "dataset_test": "synthetic",
-                 "synthetic": {"subset": "objaverse_LVIS,ShapeNet55"}},
+        "data": {"root": "data", "num_classes_test": 15, "max_img_cat": None, "dataset_train": "synthetic",
+                 "dataset_test": "synthetic", "num_workers": 6, "bgcolor": 1, "pix3d": {"cat": None},
+                 "ocrtoc": {"cat": None, "erode_mask": 10},
+                 "synthetic": {"subset": "objaverse_LVIS,ShapeNet55", "percentage": 1}},
         "training": {"n_sdf_points": 4096},
         "loss_weight": {"shape": None, "depth": 1, "intr": 10},
         "optim": {"lr": 3e-5, "lr_ft": None, "weight_decay": 0.05, "fix_dpt": False, "clip_norm": None, "accum": 1,
@@ -204,7 +210,7 @@ def depth_gen_opt(H=224):
     return override_options(depth_opt(H), {
         "name": "depth_gen", "batch_size": 8, "max_epoch": 100,
         "arch": {"depth": {"pretrained": None, "head_init_scale": 0.001}},
-        "data": {"synthetic": {"subset": "analytic"}},
+        "data": {"root": "/tmp/gen_data", "num_workers": 4, "synthetic": {"subset": "analytic"}},
         "eval": {"batch_size": 8, "n_vis": 2},
         "optim": {"lr": 1e-4},
         "freq": {"print": 100, "print_eval": 20, "scalar": 500, "vis": 5000, "save_vis": 20000,

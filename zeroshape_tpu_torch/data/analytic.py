@@ -1,13 +1,14 @@
-"""Analytic-SDF scenes with exact ground truth, built in memory (numpy only).
+"""Analytic-SDF scenes with exact ground truth (numpy only), on disk or in memory.
 
-A copy of the scene functions of ``zeroshape_tpu/data/analytic.py`` (SDF
-primitives, ``make_sdf``, ``_normals``, ``look_at_pose``, ``render_scene``,
-``surface_points``, ``sdf_samples``, ``_camera_ring``) and of
-``data/common.py:pose_from_Rt``. :func:`eval_samples` gives the samples
-that ``generate_dataset`` followed by ``SyntheticDataset(split="test")``
-would load, and :func:`train_samples` the training split with its loader
-order and per-epoch SDF subsets (``SyntheticDataset(split="train")`` and
-``data/base.py:DataLoader``), without PIL and without writing files.
+A copy of ``zeroshape_tpu/data/analytic.py`` (SDF primitives, ``make_sdf``,
+``_normals``, ``look_at_pose``, ``render_scene``, ``surface_points``,
+``sdf_samples``, ``_camera_ring``, ``generate_dataset`` with its held-out
+objects) and of ``data/common.py:pose_from_Rt``. :func:`generate_dataset`
+writes the tree that ``data.synthetic`` reads. Without files,
+:func:`eval_samples` gives the samples that tree's
+``SyntheticDataset(split="test")`` would load, and :func:`train_samples`
+the training split with its loader order and per-epoch SDF subsets
+(``SyntheticDataset(split="train")`` and ``data/base.py:DataLoader``).
 
 Conventions: the object is centred at the origin with radius <= ~0.5; the
 camera is OpenCV-style (x right, y down, z forward) and ``pose`` is the
@@ -16,7 +17,12 @@ world->camera ``[R|t]``; depth maps hold z-depth at integer pixel coordinates.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from zeroshape_tpu_torch.data import base
+from zeroshape_tpu_torch.data.common import write_png
 
 SDF_KINDS = ("sphere", "box", "torus", "capsule", "box_sphere")
 VAL_CAP = 10  # test images per category (data/synthetic.py:39-41)
@@ -198,23 +204,90 @@ def _view(rgb, depth, pose):
     }
 
 
-class TrainSet:
+def _objects(n_objects, holdout_objects, category):
+    """``(category, kind, held out)`` of each object the writer makes, in order:
+    the seen objects in ``category``, then one ``ho{i}`` category a held-out object."""
+    for o in range(n_objects + holdout_objects):
+        held_out = o >= n_objects
+        yield (f"ho{o - n_objects}" if held_out else category), SDF_KINDS[o % len(SDF_KINDS)], held_out
+
+
+def generate_dataset(root, n_objects=5, n_views=8, H=224, seed=0, subset="analytic", category="prim",
+                     n_pc_points=10000, n_sdf_points=20000, val_views=1, focal=1.3875, holdout_objects=0):
+    """Write an analytic synthetic-data tree under ``root`` in the reference
+    layout (``zeroshape_tpu/data/analytic.py:245-337``), for ``data.root =
+    root`` and ``data.synthetic.subset = subset``.
+
+    The last ``val_views`` views of every object go to the val list. With
+    ``holdout_objects``, that many more objects (fresh draws of the same
+    primitive families) each get a category ``ho{i}`` whose views all go to
+    its val list (its train list is empty): scoring them scores objects the
+    model never saw, beside the seen objects' views of ``category``
+    (``cd_cat.txt`` has a row for each). Images and masks are PNG files of
+    :func:`data.common.write_png`; the draws, renders, pixels and arrays
+    equal the JAX writer's. Returns the subset directory.
+    """
+    rng = np.random.default_rng(seed)
+    out = os.path.join(root, "train_data", subset)
+    os.makedirs(os.path.join(out, "lists"), exist_ok=True)
+    K = _intrinsics(H, focal)
+    lists = {}  # category -> (train lines, val lines)
+    for o, (cat, kind, held_out) in enumerate(_objects(n_objects, holdout_objects, category)):
+        if cat not in lists:
+            for sub in ("images_processed", "masks", "depth", "pointclouds", "gt_sdf", "camera_data/intr",
+                        "camera_data/extr"):
+                os.makedirs(os.path.join(out, sub, cat), exist_ok=True)
+            lists[cat] = ([], [])
+        train_lines, val_lines = lists[cat]
+        sdf, albedo = make_sdf(kind, rng)
+        obj = f"{kind}{o}"
+        np.save(os.path.join(out, "pointclouds", cat, f"{cat}_{obj}.npy"), surface_points(sdf, n_pc_points, rng))
+        pts, vals = sdf_samples(sdf, n_sdf_points, rng)
+        np.save(os.path.join(out, "gt_sdf", cat, f"{cat}_{obj}.npy"), {"sample_pt": pts, "sample_sdf": vals})
+        for v, cam in enumerate(_camera_ring(n_views, rng)):
+            pose = look_at_pose(cam)
+            rgb, depth, mask = render_scene(sdf, albedo, K, pose, H, H)
+            stem = f"{cat}_{obj}_{v:03d}"
+            write_png(os.path.join(out, "images_processed", cat, stem + ".png"), (rgb * 255).astype(np.uint8))
+            write_png(os.path.join(out, "masks", cat, stem + ".png"), (mask * 255).astype(np.uint8))
+            np.save(os.path.join(out, "depth", cat, stem + ".npy"), depth)
+            np.save(os.path.join(out, "camera_data", "intr", cat, stem + ".npy"), K)
+            np.save(os.path.join(out, "camera_data", "extr", cat, stem + ".npy"), pose)
+            (val_lines if held_out or v >= n_views - val_views else train_lines).append(stem + ".png")
+    for cat, (train_lines, val_lines) in lists.items():
+        for split, lines in (("train", train_lines), ("val", val_lines)):
+            with open(os.path.join(out, "lists", f"{cat}_{split}.list"), "w") as fh:
+                fh.write("\n".join(lines) + "\n")
+    return out
+
+
+class TrainSet(base.Dataset):
     """An analytic training split in memory, read as the JAX loader reads it.
 
     ``views`` hold each training view's images, depth, intrinsics, pose and
     object; ``objects`` each object's SDF samples (the stored values minus
     the loader's 0.003, ``data/synthetic.py:179-182``); ``val`` the
-    validation samples in :func:`eval_samples`'s layout; ``label2cat``
-    the one category, ``"prim"``.
+    validation samples in :func:`eval_samples`'s layout; ``label2cat`` the
+    categories in the loader's order. As a :class:`base.Dataset` it gives
+    :meth:`sample` for the loader's epoch, with the seed and SDF count of
+    the options its loader was made with (:meth:`setup_loader`).
     """
 
-    label2cat = ["prim"]
-
-    def __init__(self, views, objects, val):
+    def __init__(self, views, objects, val, label2cat=("prim",)):
+        super().__init__(None, "train")
         self.views, self.objects, self.val = views, objects, val
+        self.label2cat = list(label2cat)
+        self.seed, self.n_sdf_points = 0, None
 
     def __len__(self):
         return len(self.views)
+
+    def __getitem__(self, idx):
+        return self.sample(idx, self._epoch, self.seed, self.n_sdf_points)
+
+    def setup_loader(self, opt, **kw):
+        self.opt, self.seed, self.n_sdf_points = opt, opt.get("seed") or 0, opt.training.get("n_sdf_points")
+        return super().setup_loader(opt, **kw)
 
     def sample(self, idx, epoch, seed=0, n_sdf_points=None):
         """Training sample ``idx`` in ``epoch`` (``synthetic.py:185-221``):
@@ -226,7 +299,7 @@ class TrainSet:
             sel = np.random.default_rng((seed, idx, epoch)).permutation(pts.shape[0])[:n_sdf_points]
             pts, sdf = pts[sel], sdf[sel]
         out = {k: v for k, v in view.items() if k != "object"}
-        return dict(out, idx=np.int64(idx), category_label=np.int64(0), gt_sample_points=pts, gt_sample_sdf=sdf)
+        return dict(out, idx=np.int64(idx), gt_sample_points=pts, gt_sample_sdf=sdf)
 
     def batch_order(self, epoch, batch_size, seed=0):
         """The loader's batches of one epoch (``data/base.py:110-126``): indices
@@ -242,33 +315,37 @@ class TrainSet:
 
 
 def train_samples(n_objects=5, n_views=8, H=224, seed=0, n_pc_points=10000, n_sdf_points=20000, val_views=1,
-                  focal=1.3875):
+                  focal=1.3875, holdout_objects=0):
     """The training and validation splits of an analytic dataset, as the loader would give them.
 
-    Walks the generator of ``generate_dataset(root, n_objects, n_views, H,
-    seed, n_pc_points=..., n_sdf_points=..., val_views=...)`` with the same
-    rng draws and renders every view: the first ``n_views - val_views`` of
-    each object are training views (``SyntheticDataset(split="train")``),
-    the rest validation samples (``split="test"``, at most 10). Returns a
-    :class:`TrainSet`.
+    Walks the draws of :func:`generate_dataset` with the same arguments and
+    renders every view without writing files: the first ``n_views -
+    val_views`` views of each seen object are training views
+    (``SyntheticDataset(split="train")``); the validation samples
+    (``split="test"``) are the val lists of the categories in the loader's
+    order (sorted list names: ``ho{i}`` before ``prim``), at most 10 a
+    category, with their ``dpc``. Returns a :class:`TrainSet`.
     """
     rng = np.random.default_rng(seed)
     K = _intrinsics(H, focal)
-    views, objects, val = [], [], []
-    for o in range(n_objects):
-        sdf, albedo = make_sdf(SDF_KINDS[o % len(SDF_KINDS)], rng)
+    views, objects, val = [], [], {}
+    cats = [c for c, _, _ in _objects(n_objects, holdout_objects, "prim")]
+    label2cat = sorted(dict.fromkeys(cats), key=lambda c: f"{c}_train.list")
+    for o, (cat, kind, held_out) in enumerate(_objects(n_objects, holdout_objects, "prim")):
+        sdf, albedo = make_sdf(kind, rng)
         pc = surface_points(sdf, n_pc_points, rng)
         pts, vals = sdf_samples(sdf, n_sdf_points, rng)
         objects.append((pts, vals - 0.003))
         for v, cam in enumerate(_camera_ring(n_views, rng)):
             pose = look_at_pose(cam)
             rgb, depth, _ = render_scene(sdf, albedo, K, pose, H, H)
-            view = dict(_view(rgb, depth, pose), intr=K)
-            if v < n_views - val_views:
+            view = dict(_view(rgb, depth, pose), intr=K, category_label=np.int64(label2cat.index(cat)))
+            if not held_out and v < n_views - val_views:
                 views.append(dict(view, object=o))
-            elif len(val) < VAL_CAP:
-                val.append(dict(view, idx=np.int64(len(val)), category_label=np.int64(0), dpc={"points": pc}))
-    return TrainSet(views, objects, val)
+            elif len(val.setdefault(cat, [])) < VAL_CAP:
+                val[cat].append(dict(view, dpc={"points": pc}))
+    val = [s for cat in label2cat for s in val.get(cat, [])]
+    return TrainSet(views, objects, [dict(s, idx=np.int64(i)) for i, s in enumerate(val)], label2cat)
 
 
 def eval_samples(n_objects=2, n_views=2, H=224, seed=0, n_pc_points=10000, n_sdf_points=20000, focal=1.3875):

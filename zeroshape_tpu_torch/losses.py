@@ -5,6 +5,10 @@ MiDaS scale-and-shift-invariant depth loss with multi-scale gradient
 matching (reference ``utils/loss.py`` and ``model/depth/midas_loss.py``).
 Masked arithmetic on fixed shapes, as in the JAX package, so every term has
 the same value and gradient there and here. Depth maps are ``[B, 1, H, W]``.
+
+A term that divides a sum over the batch by another (the masked means) is
+the global batch's ratio under several ranks (:func:`batch_ratio`), as in
+the JAX package's single program over the sharded batch.
 """
 
 from __future__ import annotations
@@ -12,6 +16,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from zeroshape_tpu_torch.parallel import dist
+
+
+def batch_ratio(num, den, eps=0.0):
+    """``num / (den + eps)`` of two sums over the batch's rows, for the global
+    batch: under ``W`` ranks each rank returns ``W * num / (sum of den over
+    the ranks + eps)``, so the mean over the ranks is the global ratio and the
+    averaged gradients are its gradients (``den`` holds no gradient)."""
+    if dist.world() == 1:
+        return num / (den + eps)
+    return num * dist.world() / (dist.all_reduce_(den.detach().clone()) + eps)
 
 
 def shape_loss(pred_occ_logits, gt_sdf, impt_thres=0.01, impt_weight=1.0):
@@ -29,7 +45,7 @@ def shape_loss(pred_occ_logits, gt_sdf, impt_thres=0.01, impt_weight=1.0):
 def intr_loss(seen_pred, seen_gt, mask):
     """Masked MSE of the normalised visible surfaces ``[B, HW, 3]`` (losses.py:41-47)."""
     distance = ((seen_pred - seen_gt) ** 2).sum(dim=-1)
-    return (distance * mask).sum() / (mask.sum() + 1e-8)
+    return batch_ratio((distance * mask).sum(), mask.sum(), 1e-8)
 
 
 def _order_keys(x):
@@ -87,7 +103,7 @@ def masked_shift_and_scale(depth_pred, depth_gt, mask_valid):
 
 
 def masked_l1_loss(pred, target, mask_valid):
-    return ((pred - target).abs() * mask_valid).sum() / (mask_valid.sum() + 1e-6)
+    return batch_ratio(((pred - target).abs() * mask_valid).sum(), mask_valid.sum(), 1e-6)
 
 
 def compute_scale_and_shift(prediction, target, mask, det_eps=1e-6):
@@ -123,8 +139,8 @@ def gradient_matching_term(prediction, target, mask, scales=4, reduction="image-
         p, t, m = (x[:, ::step, ::step] for x in (prediction, target, mask))
         image_loss, M = _gradient_loss_single_scale(m * (p - t), m)
         if reduction == "batch-based":
-            divisor = M.sum()
-            total = total + torch.where(divisor == 0, 0.0, image_loss.sum() / torch.clamp(divisor, min=1.0))
+            divisor = dist.all_reduce_(M.sum().detach().clone())  # the global batch's
+            total = total + torch.where(divisor == 0, 0.0, image_loss.sum() * dist.world() / torch.clamp(divisor, min=1.0))
         else:
             total = total + torch.where(M > 0, image_loss / torch.clamp(M, min=1.0), image_loss).mean()
     return total

@@ -15,6 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from zeroshape_tpu_torch.parallel import dist
+
 
 # ---------------------------------------------------------------------------
 # Positional embeddings (layers.py:32-50)
@@ -52,9 +54,12 @@ def gelu_exact(x):
 
 def make_drop_path_mask(generator, batch: int, rate: float, device=None):
     """Per-sample stochastic-depth keep mask ``[batch]``, pre-scaled by
-    ``1 / keep`` (layers.py:81-85), drawn from ``generator``."""
+    ``1 / keep`` (layers.py:81-85), drawn from ``generator``. ``batch`` is
+    this rank's: every rank draws the global batch's masks and keeps its
+    own rows, so the masks do not depend on the number of ranks."""
     keep = 1.0 - rate
-    draw = torch.rand(batch, generator=generator, device=device)
+    r, n = dist.rank(), dist.world()
+    draw = torch.rand(batch * n, generator=generator, device=device)[r * batch: (r + 1) * batch]
     return (draw < keep).float() / keep
 
 
@@ -180,6 +185,46 @@ def max_pool_same(x, kernel: int = 3, stride: int = 2):
 # Conv-BN bottleneck (layers.py:251-295)
 # ---------------------------------------------------------------------------
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalisation over the global batch of all ranks (as
+    ``SyncBatchNorm``): the forward all-reduces each channel's count, sum and
+    sum of squares, the backward the sums of ``dy`` and ``dy * (x - mean)``,
+    so every rank's input gradient carries every rank's loss. Statistics in
+    float64; on gloo the reductions go through the host."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x.double()
+        n = torch.tensor([x.numel() // x.shape[1]], dtype=torch.float64, device=x.device)
+        stats = dist.all_reduce_(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), n]))
+        C = x.shape[1]
+        count = stats[2 * C]
+        mean = stats[:C] / count
+        var = (stats[C: 2 * C] / count - mean * mean).clamp_min(0)
+        invstd = (var + eps).rsqrt()
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.count = count
+        shape = (1, -1, 1, 1)
+        y = (xf - mean.view(shape)) * (invstd * weight.double()).view(shape) + bias.double().view(shape)
+        mean, var = mean.float(), var.float()
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        shape = (1, -1, 1, 1)
+        dyf, xmu = dy.double(), x.double() - mean.view(shape)
+        sum_dy, sum_dy_xmu = dyf.sum((0, 2, 3)), (dyf * xmu).sum((0, 2, 3))
+        grad_w, grad_b = (sum_dy_xmu * invstd).to(weight.dtype), sum_dy.to(weight.dtype)
+        C = x.shape[1]
+        sums = dist.all_reduce_(torch.cat([sum_dy, sum_dy_xmu]))
+        mean_dy, mean_dy_xmu = sums[:C] / ctx.count, sums[C:] / ctx.count
+        dx = (dyf - mean_dy.view(shape) - xmu * (invstd * invstd * mean_dy_xmu).view(shape)) \
+            * (invstd * weight.double()).view(shape)
+        return dx.to(x.dtype), grad_w, grad_b, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d (eps 1e-5, momentum 0.1) with the running-statistics rule
     of the JAX package (flax ``BatchNorm(momentum=0.9)``, layers.py:251-268).
@@ -190,7 +235,8 @@ class BatchNorm(nn.BatchNorm2d):
     unbiased one (a known deviation from the torch reference). The batch is
     reduced once: the running statistics move from the mean and inverse
     standard deviation that the normalisation saved (biased variance =
-    invstd^-2 - eps).
+    invstd^-2 - eps). Under several ranks the statistics are those of the
+    global batch, as flax's over the sharded batch (:class:`_GlobalBatchNorm`).
     """
 
     def __init__(self, channels: int):
@@ -199,10 +245,15 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if dist.world() > 1:
+            out, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        else:
+            out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
+            if dist.world() == 1:
+                var = invstd.pow(-2).sub_(self.eps)
             self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(invstd.pow(-2).sub_(self.eps), self.momentum)
+            self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return out
 

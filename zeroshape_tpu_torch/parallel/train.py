@@ -12,7 +12,17 @@ its ``optax.multi_transform``:
   gradient is zero, so frozen parameters leave the optimizer and stop
   requiring gradients; their gradients then stay out of the global-norm
   clip, as ``:117-127`` makes sure in JAX.
-* ``clip_norm``: the global-norm clip of ``optax.clip_by_global_norm``.
+* several ranks: before an update the gradients are averaged over the
+  ranks (:func:`parallel.dist.average_gradients`, an explicit bucketed
+  all-reduce), so the update is the one of the global batch, as the JAX
+  package's single SPMD program computes it; BatchNorm's statistics are the
+  global batch's (``models/layers.BatchNorm``) and stochastic depth keeps
+  the global batch's masks (``make_drop_path_mask``). The graph is not
+  wrapped in DDP: validation and the train-split metrics call its
+  ``encode_image`` and decoder directly, and the ViT's last LayerNorm,
+  which the DPT never reads, would need ``find_unused_parameters``.
+* ``clip_norm``: the global-norm clip of ``optax.clip_by_global_norm``, of
+  the averaged gradients.
 * ``accum``: ``optax.MultiSteps``; the mean of ``accum`` mini-batch
   gradients is applied once.
 * ``sched``: the per-epoch cosine, evaluated at the 0-based count of
@@ -31,6 +41,7 @@ from torch.profiler import record_function
 
 from zeroshape_tpu_torch.losses import summarize_loss
 from zeroshape_tpu_torch.models.graph_shape import attn_geo_stats, compute_loss
+from zeroshape_tpu_torch.parallel import dist
 
 GROUPS = ("scratch_decay", "scratch_nodecay", "finetune_decay", "finetune_nodecay")
 
@@ -107,6 +118,7 @@ class TrainOptimizer:
             return False
         self.mini_step = 0
         grads = [p.grad for p in self.params() if p.grad is not None]
+        dist.average_gradients(grads)  # each rank's mean over its rows -> the global batch's
         if self.accum > 1:
             torch._foreach_div_(grads, float(self.accum))
         if self.clip_norm:

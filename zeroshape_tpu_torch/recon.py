@@ -227,12 +227,13 @@ def reconstruct_batch(
             grid = get_dense_3D_grid(vox_res, rng, device=dev)
             level = occupancy_grid(decode_fn, grid, B, tile_points=grid.shape[0]).reshape(B, S, S, S)
             n_active = None
+    gens = generator if isinstance(generator, (list, tuple)) else [generator] * B
     with record_function("surface_sample"):
         if hier:
-            pts = [sample_surface_points_cells(level[b], ids[b], valid[b], generator, num_points, factor=FACTOR)
+            pts = [sample_surface_points_cells(level[b], ids[b], valid[b], gens[b], num_points, factor=FACTOR)
                    for b in range(B)]
         else:
-            pts = [sample_surface_points(level[b], generator, num_points) for b in range(B)]
+            pts = [sample_surface_points(level[b], gens[b], num_points) for b in range(B)]
         world = torch.stack(pts) / S * (rng[1] - rng[0]) + rng[0]
     return out, level, world, n_active
 

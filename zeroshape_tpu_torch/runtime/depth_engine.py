@@ -1,5 +1,5 @@
 """The depth engine (counterpart of ``zeroshape_tpu/runtime/depth_engine.py``):
-depth + intrinsics pretraining on one card, and its evaluation.
+depth + intrinsics pretraining, and its evaluation, in one process or several.
 
 :func:`train` is stage 1 of the two-stage recipe (``options/depth_gen.yaml``,
 then a shape run with ``pretrain.depth`` set to its ``best.ckpt``): the
@@ -10,7 +10,7 @@ validated by :func:`evaluate`, the best checkpoint chosen on ``l1_err``.
 depth metrics per sample and averages them over the samples.
 
 Not here: the train-time and evaluation visual dumps (they wait for the
-port's ``vis``) and multi-process runs.
+port's ``vis``).
 """
 
 from __future__ import annotations
@@ -21,65 +21,69 @@ import numpy as np
 import torch
 
 from zeroshape_tpu_torch import resolve_device
+from zeroshape_tpu_torch.data.base import DataLoader
 from zeroshape_tpu_torch.metrics.depth_metrics import DEFAULT_THRESHOLDS, compute_depth_metrics, metric_keys
 from zeroshape_tpu_torch.models import graph_depth, resolve_compute_dtype
 from zeroshape_tpu_torch.models.graph_depth import DepthGraph
+from zeroshape_tpu_torch.parallel import dist
 from zeroshape_tpu_torch.parallel import train as ptrain
 from zeroshape_tpu_torch.runtime import checkpoint, engine_base
+from zeroshape_tpu_torch.runtime.logging import log_print
 from zeroshape_tpu_torch.runtime.shape_engine import to_device
 from zeroshape_tpu_torch.weights import init_like_flax
 
 MODEL_KEYS = ("rgb_input_map", "mask_input_map", "depth_input_map", "intr")
 
 
-def _batches(samples, batch_size):
-    """Stack samples into batches of ``batch_size`` (the last may be short):
-    the model keys and ``mask_eroded`` where the samples have it."""
-    keys = MODEL_KEYS + (("mask_eroded",) if samples and "mask_eroded" in samples[0] else ())
-    for i in range(0, len(samples), batch_size):
-        group = samples[i : i + batch_size]
-        yield {k: np.stack([s[k] for s in group]) for k in keys}
-
-
 def evaluate(graph, samples, opt, output_path, training=False, device=None):
     """The aligned depth metrics of ``graph`` (a :class:`DepthGraph` on
-    ``device``, None -> cuda) on ``samples`` (dicts with ``rgb_input_map``,
-    ``mask_input_map``, ``depth_input_map``, ``intr``, and ``mask_eroded``
-    where a dataset erodes its masks, which then scores in place of the
-    mask), ``opt.eval.batch_size`` at a time, with ``eval.d_thresholds`` and
-    ``eval.depth_cap``. The means are over exactly the samples given. Final
-    metrics (``training=False``) write ``best_val.txt`` into ``output_path``
-    in the JAX engine's format (``depth_engine.py:290-293``).
+    ``device``, None -> cuda) on ``samples`` (a dataset or list of dicts with
+    ``rgb_input_map``, ``mask_input_map``, ``depth_input_map``, ``intr``, and
+    ``mask_eroded`` where a dataset erodes its masks, which then scores in
+    place of the mask), global batches of ``opt.eval.batch_size`` with each
+    rank scoring its rows, ``eval.d_thresholds`` and ``eval.depth_cap``.
+    The per-sample metrics are gathered over the ranks and the padding of an
+    uneven tail dropped, so the means are over exactly the samples given.
+    Final metrics (``training=False``) write ``best_val.txt`` into
+    ``output_path`` in the JAX engine's format (``depth_engine.py:290-293``;
+    rank 0).
 
     Returns ``{key: mean}`` over :func:`metric_keys`.
     """
     dev = resolve_device(device)
     thresholds = tuple(opt.eval.get("d_thresholds") or DEFAULT_THRESHOLDS)
     keys = metric_keys(thresholds)
+    eval_bs, N = opt.eval.batch_size, len(samples)
+    loader = DataLoader(samples, eval_bs, num_workers=(opt.get("data") or {}).get("num_workers", 4),
+                        process_index=dist.rank(), process_count=dist.world())
     sums, count = {k: 0.0 for k in keys}, 0
     was_training = graph.training
     graph.eval()
     try:
         with torch.inference_mode():
-            for it, batch in enumerate(_batches(list(samples), opt.eval.batch_size)):
-                b = to_device(batch, dev, tuple(batch))
+            for it, batch in enumerate(loader):
+                B0 = min(eval_bs, N - it * eval_bs)
+                names = MODEL_KEYS + (("mask_eroded",) if "mask_eroded" in batch else ())
+                b = to_device(batch, dev, names)
                 out = graph(b, train=False)
                 mask = b.get("mask_eroded", b["mask_input_map"])
                 metrics, _ = compute_depth_metrics(
                     out["depth_pred"].permute(0, 3, 1, 2), b["depth_input_map"].permute(0, 3, 1, 2),
                     mask.permute(0, 3, 1, 2), thresholds=thresholds, depth_cap=opt.eval.get("depth_cap"),
                 )
+                got = dist.gather_rows({k: metrics[k].double().cpu().numpy() for k in keys})
                 for k in keys:
-                    sums[k] += float(metrics[k].double().sum())
-                count += len(batch["rgb_input_map"])
+                    sums[k] += float(got[k][:B0].sum())
+                count += B0
                 if it % opt.freq.print_eval == 0:
-                    print(f"Eval Iter {it} @ {count} samples")
+                    log_print(f"Eval Iter {it}/{len(loader)} @ {count} samples")
     finally:
         graph.train(was_training)
+    assert count == N, (count, N)
     means = {k: v / max(count, 1) for k, v in sums.items()}
     for k in keys:
-        print(f"eval {k}: {means[k]:.4f}")
-    if not training:
+        log_print(f"eval {k}: {means[k]:.4f}")
+    if not training and dist.is_main():
         with open(os.path.join(output_path, "best_val.txt"), "w") as f:
             for k in keys:
                 f.write(f"{k}: {means[k]:.6f}\n")
@@ -87,10 +91,12 @@ def evaluate(graph, samples, opt, output_path, training=False, device=None):
 
 
 def train(opt, data, output_path, device=None):
-    """Train the depth graph on ``data`` (a ``data.analytic.TrainSet``, whose
-    samples carry depth maps and intrinsics) under ``opt`` (e.g.
-    ``config.depth_gen_opt()`` with overrides); checkpoints (the reference
-    depth graph's ``.ckpt`` layout) and event files go to ``output_path``.
+    """Train the depth graph under ``opt`` (e.g. ``config.depth_gen_opt()``
+    with overrides) on ``data`` (samples with depth maps and intrinsics, a
+    ``data.analytic.TrainSet`` for one), validated on ``data.val``; with
+    ``data`` None on the datasets ``opt.data`` names
+    (:func:`engine_base.load_dataset`). Checkpoints (the reference depth
+    graph's ``.ckpt`` layout) and event files go to ``output_path``.
 
     A fresh run starts from ``weights.init_like_flax(seed=opt.seed)`` with
     ``arch.depth.pretrained`` staged over it (:func:`checkpoint.
@@ -98,8 +104,8 @@ def train(opt, data, output_path, device=None):
     engine. Validation (:func:`evaluate` on ``data.val``) runs before the
     first step and every ``freq.eval`` epochs; the lowest ``l1_err`` is kept
     as ``best.ckpt``. The loop and its cadences are :func:`engine_base.
-    train_loop`'s, a step :func:`parallel.train.train_step` with the depth
-    graph's loss.
+    train_loop`'s over the training set's loader, a step
+    :func:`parallel.train.train_step` with the depth graph's loss.
 
     Returns :func:`engine_base.train_loop`'s dict; ``val_scalars`` holds
     every metric of each validation.
@@ -109,7 +115,9 @@ def train(opt, data, output_path, device=None):
     if not opt.get("resume"):
         engine_base.clear_event_files(output_path)
     seed = opt.get("seed") or 0
-    n_batches = engine_base.count_batches(data, opt.batch_size)
+    train_data, val_data = (data, data.val) if data is not None else engine_base.load_dataset(opt)
+    loader = train_data.setup_loader(opt, shuffle=True, drop_last=True, pin_memory=dev.type == "cuda")
+    n_batches = engine_base.count_batches(train_data, opt.batch_size)
     graph = DepthGraph.from_opt(opt, dtype=resolve_compute_dtype(opt, dev))
     graph = init_like_flax(graph, seed).to(dev).train()
     checkpoint.stage_pretrained(graph, opt, "depth")
@@ -122,11 +130,9 @@ def train(opt, data, output_path, device=None):
         return metrics
 
     def run_validation(ep):
-        means = evaluate(graph, data.val, opt, output_path, training=True, device=dev)
+        means = evaluate(graph, val_data, opt, output_path, training=True, device=dev)
         return means["l1_err"], {f"eval/{k}": v for k, v in means.items()}
 
-    return engine_base.train_loop(
-        opt, data, output_path, graph, optimizer,
-        lambda idx, ep: to_device(data.batch(idx, ep, seed), dev, MODEL_KEYS), step, run_validation, "l1_err",
-        start,
-    )
+    return engine_base.train_loop(opt, loader, output_path, graph, optimizer,
+                                  lambda batch: to_device(batch, dev, MODEL_KEYS), step, run_validation, "l1_err",
+                                  start)

@@ -1,23 +1,28 @@
 """The shape engine (counterpart of ``zeroshape_tpu/runtime/shape_engine.py``):
-the single-card train loop and the evaluation.
+the train loop and the evaluation, in one process or several.
 
 :func:`train` (``Runner.train`` / ``train_epoch`` / ``train_iteration``,
-``:450-575``) takes optimizer steps epoch by epoch on an analytic training
-split, with the print / scalar / latest-checkpoint / validation cadences of
-``opt.freq``, validates through :func:`evaluate` and keeps the best.
+``:450-575``) takes optimizer steps epoch by epoch on a training set (the
+dataset ``opt`` names on disk, or a ``data.analytic.TrainSet``), with the
+print / scalar / latest-checkpoint / validation cadences of ``opt.freq``,
+validates through :func:`evaluate` and keeps the best. Its scalars are the
+JAX engine's: ``train/<metrics of the step>``, and at the scalar cadence
+``train/dist_acc`` / ``train/dist_cov``, a reconstruction and score of the
+first ``eval.batch_size`` training samples (:func:`train_metrics`);
+``eval/dist_acc`` / ``eval/dist_cov`` at each validation.
 
 :func:`evaluate` (``Runner.evaluate``, ``:578-713``) walks a test set batch by batch: reconstruction in the
 decode posture of ``_recon_fn`` (coarse-to-fine for in-training validation,
 the dense grid for final metrics), the GT cloud moved into the view frame,
 then either the normalised Chamfer / F-score with optional ICP
 (``_score_fn``) or the best-of-rotations brute-force alignment
-(``_brute_force_fn``). Final metric runs write the reference's result files:
-``{dataset}_full_results.txt``, ``cd_cat.txt`` and
-``quantitative_{dataset}.txt``.
+(``_brute_force_fn``). Under several ranks each scores its rows of every
+global batch and the per-sample metrics are gathered. Final metric runs
+write the reference's result files (rank 0): ``{dataset}_full_results.txt``,
+``cd_cat.txt`` and ``quantitative_{dataset}.txt``.
 
-Not here: multi-process training and evaluation, the profiler schedule, the
-train-time and per-sample dumps (meshes, images, turntables) and the HTML
-gallery.
+Not here: the train-time and per-sample dumps (meshes, images, turntables)
+and the HTML gallery; they wait for the port's ``vis``.
 """
 
 from __future__ import annotations
@@ -29,14 +34,18 @@ import numpy as np
 import torch
 
 from zeroshape_tpu_torch import recon, resolve_device
+from zeroshape_tpu_torch.data.base import DataLoader
 from zeroshape_tpu_torch.metrics import eval3d
 from zeroshape_tpu_torch.models import resolve_compute_dtype
 from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+from zeroshape_tpu_torch.parallel import dist
 from zeroshape_tpu_torch.parallel import train as ptrain
 from zeroshape_tpu_torch.runtime import checkpoint, engine_base
+from zeroshape_tpu_torch.runtime.logging import MetricLogger, log_print
 from zeroshape_tpu_torch.weights import init_like_flax
 
-SAMPLE_SEED = 7  # the generator of the surface samples (the JAX engine's PRNGKey(7))
+SAMPLE_SEED = 7  # the surface draws of evaluation (the JAX engine's PRNGKey(7))
+TRAIN_METRIC_SEED = 13  # those of the train-split metrics (its PRNGKey(13))
 MODEL_KEYS = ("rgb_input_map", "mask_input_map", "depth_input_map", "intr", "pose_gt", "gt_sample_points",
               "gt_sample_sdf")
 
@@ -90,23 +99,39 @@ def check_hier_overflow(n_active, opt, training, warned):
     return True
 
 
-def _batches(samples, batch_size):
-    """Stack samples in the dataset layout into batches of ``batch_size`` (the last may be short)."""
+def sample_generators(idx, device, seed=SAMPLE_SEED):
+    """One generator a sample, seeded by ``seed`` and the sample's dataset
+    index: the surface draws, and so the metrics, depend on neither the batch
+    order, the eval batch size nor the number of ranks."""
+    return [torch.Generator(device=device).manual_seed(seed * 2**32 + int(i)) for i in np.asarray(idx)]
 
-    def stack(group):
-        out = {k: np.stack([s[k] for s in group]) for k in
-               ("rgb_input_map", "mask_input_map", "pose_gt", "idx", "category_label")}
-        out["dpc_points"] = np.stack([np.asarray(s["dpc"]["points"], np.float32) for s in group])
-        return out
 
-    group = []
-    for s in samples:
-        group.append(s)
-        if len(group) == batch_size:
-            yield stack(group)
-            group = []
-    if group:
-        yield stack(group)
+def score_batch(model, batch, opt, training, seed=SAMPLE_SEED):
+    """Reconstruct and score one host batch (``rgb_input_map``,
+    ``mask_input_map``, ``pose_gt``, ``idx``, ``dpc = {"points"}``) in the
+    posture of ``training``. Returns numpy ``acc [B]``, ``comp [B]``,
+    ``f_score [B, n_thr]`` and the active cells ``[B]`` (None for the dense decode)."""
+    ev, dev = opt.eval, model.device
+    thresholds = tuple(ev.f_thresholds)
+    _, _, pred_world, n_active = recon.reconstruct_batch(
+        model, batch, sample_generators(batch["idx"], dev, seed), ev.vox_res, ev.get("hier_capacity"),
+        ev.num_points, tuple(ev.range), use_hier_decode(opt, training),
+    )
+    with torch.inference_mode():
+        gt_view = eval3d.transform_gt_to_view(
+            torch.as_tensor(np.asarray(batch["dpc"]["points"], np.float32), device=dev),
+            torch.as_tensor(np.asarray(batch["pose_gt"], np.float32), device=dev),
+            opt.data.dataset_test == "pix3d",
+        )
+        if ev.get("brute_force"):
+            res = eval3d.brute_force_batch(pred_world, gt_view, thresholds=thresholds,
+                                           prune=brute_force_prune(opt, training),
+                                           fast_coarse=bool(ev.get("bf_fast_coarse", True)))
+            accs, comps, fs = res["acc"], res["comp"], res["f_score"]
+        else:
+            accs, comps, fs = score(pred_world, gt_view, thresholds, bool(ev.get("icp")))
+    accs, comps, fs = (x.float().cpu().numpy() for x in (accs, comps, fs))
+    return accs, comps, fs, None if n_active is None else n_active.cpu().numpy()
 
 
 def full_results_header(thresholds):
@@ -142,85 +167,90 @@ def write_summaries(output_path, opt, label2cat, acc, comp, f, cat, val_metric):
             outfile.write("F-score @ %.2f: %.4f\n" % (t * 100, f_avg[i]))
 
 
-def evaluate(model, samples, opt, output_path, label2cat, training=False, device=None):
+def evaluate(model, samples, opt, output_path, label2cat, training=False, device=None, seed=SAMPLE_SEED):
     """Score ``model`` (a ``recon.ReconModel``) on ``samples``.
 
-    ``samples`` is any iterable of sample dicts in the dataset layout
-    (``rgb_input_map [H, W, 3]``, ``mask_input_map [H, W, 1]``, ``pose_gt
-    [3, 4]``, ``dpc = {"points": [G, 3]}``, ``idx``, ``category_label``);
-    they go ``opt.eval.batch_size`` at a time. ``training`` picks the
-    validation posture; final metrics (``training=False``) also write the
-    result files into ``output_path``. Surface samples are drawn from one
-    ``torch.Generator`` seeded with ``SAMPLE_SEED``, batch after batch. ``device``
-    (None -> cuda) must be the model's.
+    ``samples`` is a sequence of sample dicts in the dataset layout (a
+    dataset or a list: ``rgb_input_map [H, W, 3]``, ``mask_input_map [H,
+    W, 1]``, ``pose_gt [3, 4]``, ``dpc = {"points": [G, 3]}``, ``idx``,
+    ``category_label``); they go through a ``data.base.DataLoader`` of
+    global batches of ``opt.eval.batch_size``, each rank scoring its rows
+    (:func:`score_batch`), the per-sample metrics gathered and the padding
+    of an uneven tail dropped. ``training`` picks the validation posture;
+    final metrics (``training=False``) also write the result files into
+    ``output_path`` (rank 0). Surface samples are drawn by
+    :func:`sample_generators` from ``seed``. ``device`` (None -> cuda) must
+    be the model's.
 
     Returns a dict: ``val_metric`` (mean CD), per-sample ``acc``, ``comp``,
-    ``f_score``, ``idx``, ``category_label`` (numpy), and ``s_per_sample``,
-    the host-clock seconds per sample of each batch.
+    ``f_score``, ``idx``, ``category_label`` and ``hier_n_active``
+    (numpy, the dataset's order), and ``s_per_sample``, the host-clock
+    seconds per sample of each batch.
     """
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"the model lives on {model.device}, not on {dev}")
     ev = opt.eval
     thresholds = tuple(ev.f_thresholds)
-    hier = use_hier_decode(opt, training)
-    flip = opt.data.dataset_test == "pix3d"
-    generator = torch.Generator(device=dev).manual_seed(SAMPLE_SEED)
-    rows = {k: [] for k in ("acc", "comp", "f_score", "idx", "category_label")}
-    s_per_sample, warned = [], False
+    loader = DataLoader(samples, ev.batch_size, num_workers=(opt.get("data") or {}).get("num_workers", 4),
+                        process_index=dist.rank(), process_count=dist.world())
+    N = len(samples)
+    keys = ("acc", "comp", "f_score", "idx", "category_label", "hier_n_active")
+    rows = {k: [] for k in keys}
+    s_per_sample, warned, logger = [], False, MetricLogger()
     results_file = None
-    if not training:
+    if not training and dist.is_main():
         results_file = open(os.path.join(output_path, f"{opt.data.dataset_test}_full_results.txt"), "w")
         results_file.write(full_results_header(thresholds))
     try:
-        for batch in _batches(samples, ev.batch_size):
-            t0 = time.perf_counter()
-            _, _, pred_world, n_active = recon.reconstruct_batch(
-                model, batch, generator, ev.vox_res, ev.get("hier_capacity"), ev.num_points, tuple(ev.range), hier
-            )
-            with torch.inference_mode():
-                gt_view = eval3d.transform_gt_to_view(
-                    torch.as_tensor(batch["dpc_points"], device=dev),
-                    torch.as_tensor(batch["pose_gt"], dtype=torch.float32, device=dev), flip,
-                )
-                if ev.get("brute_force"):
-                    res = eval3d.brute_force_batch(
-                        pred_world, gt_view, thresholds=thresholds, prune=brute_force_prune(opt, training),
-                        fast_coarse=bool(ev.get("bf_fast_coarse", True)),
-                    )
-                    accs, comps, fs = res["acc"], res["comp"], res["f_score"]
-                else:
-                    accs, comps, fs = score(pred_world, gt_view, thresholds, bool(ev.get("icp")))
-            accs, comps, fs = (x.float().cpu().numpy() for x in (accs, comps, fs))
+        t0 = time.perf_counter()
+        for it, batch in enumerate(loader):
+            B0 = min(ev.batch_size, N - it * ev.batch_size)  # the valid rows of this global batch
+            accs, comps, fs, n_active = score_batch(model, batch, opt, training, seed)
+            got = dist.gather_rows({
+                "acc": accs, "comp": comps, "f_score": fs, "idx": np.asarray(batch["idx"], np.int64),
+                "category_label": np.asarray(batch["category_label"], np.int64),
+                "hier_n_active": np.full(len(accs), -1, np.int64) if n_active is None else n_active.astype(np.int64),
+            })
             if n_active is not None:
-                warned = check_hier_overflow(n_active, opt, training, warned)
-            s_per_sample.append((time.perf_counter() - t0) / len(accs))
-            for k, v in (("acc", accs), ("comp", comps), ("f_score", fs), ("idx", batch["idx"]),
-                         ("category_label", batch["category_label"])):
-                rows[k].append(v)
+                warned = check_hier_overflow(got["hier_n_active"], opt, training, warned)
+            for k in keys:
+                rows[k].append(got[k][:B0])
+            now = time.perf_counter()
+            s_per_sample.append((now - t0) / B0)
+            t0 = now
+            acc, comp = got["acc"][:B0].mean(), got["comp"][:B0].mean()
+            logger.update(ACC=acc, COMP=comp, CD=(acc + comp) / 2, s_smp=s_per_sample[-1])
+            if it % ((opt.get("freq") or {}).get("print_eval") or 1) == 0:
+                log_print(f"Eval Iter {it}/{len(loader)}: {logger}")
             if results_file is not None:
-                for b in range(len(accs)):
-                    results_file.write(full_results_line(batch["idx"][b], accs[b], comps[b], fs[b]))
+                for b in range(B0):
+                    results_file.write(full_results_line(got["idx"][b], got["acc"][b], got["comp"][b],
+                                                         got["f_score"][b]))
                 results_file.flush()
     finally:
         if results_file is not None:
             results_file.close()
     out = {k: np.concatenate(v) for k, v in rows.items()}
+    assert len(out["acc"]) == N, (len(out["acc"]), N)
     val_metric = (out["acc"].mean() + out["comp"].mean()) / 2
-    print(f"CD. ACC: {out['acc'].mean():.4f}, COMP: {out['comp'].mean():.4f}")
-    if not training:
+    log_print(f"CD. ACC: {out['acc'].mean():.4f}, COMP: {out['comp'].mean():.4f}")
+    if not training and dist.is_main():
         write_summaries(output_path, opt, label2cat, out["acc"], out["comp"], out["f_score"],
                         out["category_label"], val_metric)
     return dict(out, val_metric=float(val_metric), s_per_sample=s_per_sample)
 
 
 def to_device(batch, device, keys=MODEL_KEYS):
-    """The model ``keys`` of a numpy batch as fp32 tensors on ``device``
-    (pinned and copied asynchronously to a GPU)."""
+    """The model ``keys`` of a host batch (numpy, or pinned tensors from a
+    pinning loader) as fp32 tensors on ``device``, copied to a GPU from
+    pinned memory without blocking."""
     out = {}
     for k in keys:
-        x = torch.as_tensor(np.asarray(batch[k], np.float32))
-        out[k] = x.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else x
+        x = torch.as_tensor(np.asarray(batch[k], np.float32) if isinstance(batch[k], np.ndarray) else batch[k])
+        if device.type == "cuda":
+            x = (x if x.is_pinned() else x.pin_memory()).to(device, non_blocking=True)
+        out[k] = x
     return out
 
 
@@ -231,22 +261,50 @@ def step_generator(seed, it, device):
     return torch.Generator(device=device).manual_seed(seed * 2**32 + it)
 
 
-def validate(graph, data, opt, output_path, device):
-    """In-training validation (``training=True``) of ``graph`` on ``data.val``:
-    the graph is switched to eval, its K1 weights packed anew, its logits not
-    sharpened, and switched back to train. Returns :func:`evaluate`'s dict."""
+def recon_model(graph, device):
+    """``graph`` switched to eval as a ``recon.ReconModel`` at sharpen 1 with
+    its K1 weights packed anew (the posture of validation)."""
     graph.eval()
+    return recon.ReconModel(graph, None, 1.0, device).repack()
+
+
+def validate(graph, data, opt, output_path, device):
+    """In-training validation (``training=True``) of ``graph`` on ``data``
+    (a sequence of samples): the graph is switched to eval, its K1 weights
+    packed anew, its logits not sharpened, and switched back to train.
+    Returns :func:`evaluate`'s dict."""
     try:
-        model = recon.ReconModel(graph, None, 1.0, device).repack()
-        return evaluate(model, data.val, opt, output_path, data.label2cat, training=True, device=device)
+        return evaluate(recon_model(graph, device), data, opt, output_path, getattr(data, "label2cat", None),
+                        training=True, device=device)
     finally:
         graph.train()
 
 
+def train_metrics(graph, batch, opt, device):
+    """``train/dist_acc`` and ``train/dist_cov`` of a host training batch
+    (``_log_train_shape_metrics``, ``shape_engine.py:826-849``): its first
+    ``eval.batch_size // world`` rows on each rank reconstructed and scored
+    in the validation posture with the fixed seed :data:`TRAIN_METRIC_SEED`,
+    the scores gathered over the ranks. Empty where the batch has no ``dpc``
+    (the in-memory split) or too few rows."""
+    k = opt.eval.batch_size // dist.world()
+    if "dpc" not in batch or k == 0 or len(batch["idx"]) < k:
+        return {}
+    rows = {key: batch[key][:k] for key in ("rgb_input_map", "mask_input_map", "pose_gt", "idx")}
+    rows["dpc"] = {"points": batch["dpc"]["points"][:k]}
+    try:
+        accs, comps, _, _ = score_batch(recon_model(graph, device), rows, opt, True, TRAIN_METRIC_SEED)
+    finally:
+        graph.train()
+    got = dist.gather_rows({"acc": accs, "comp": comps})
+    return {"train/dist_acc": float(got["acc"].mean()), "train/dist_cov": float(got["comp"].mean())}
+
+
 def train(opt, data, output_path, device=None):
-    """Train the shape graph on ``data`` (a ``data.analytic.TrainSet``) under
-    ``opt`` (e.g. ``config.shape_gen_opt()`` with overrides); checkpoints and
-    event files go to ``output_path``.
+    """Train the shape graph under ``opt`` (e.g. ``config.shape_gen_opt()`` with
+    overrides) on ``data``, validated on ``data.val``; with ``data`` None on
+    the datasets ``opt.data`` names (:func:`engine_base.load_dataset`).
+    Checkpoints and event files go to ``output_path``.
 
     A fresh run starts from ``weights.init_like_flax(seed=opt.seed)`` with
     the pretrained weights that ``opt`` names staged over it
@@ -254,10 +312,13 @@ def train(opt, data, output_path, device=None):
     ``arch.depth.pretrained``); ``opt.resume`` then continues from
     ``latest.ckpt``, or ``opt.load`` restores a checkpoint's weights
     (:func:`engine_base.start_run`). The loop and its cadences are
-    :func:`engine_base.train_loop`'s; a step is :func:`parallel.train.
-    train_step` with the stochastic depth of :func:`step_generator` and, at
-    the scalar cadence, the attention statistics; validation is
-    :func:`validate`, the best CD kept (``shape_engine.py:460-549``).
+    :func:`engine_base.train_loop`'s over the training set's loader (global
+    batch ``opt.batch_size``, each rank its rows); a step is
+    :func:`parallel.train.train_step` with the stochastic depth of
+    :func:`step_generator` and, at the scalar cadence, the attention
+    statistics and :func:`train_metrics`; validation is :func:`validate`,
+    which logs ``eval/dist_acc`` and ``eval/dist_cov``, the best CD kept
+    (``shape_engine.py:460-549``).
 
     Returns :func:`engine_base.train_loop`'s dict.
     """
@@ -265,8 +326,10 @@ def train(opt, data, output_path, device=None):
     os.makedirs(output_path, exist_ok=True)
     if not opt.get("resume"):
         engine_base.clear_event_files(output_path)
-    seed, n_sdf = opt.get("seed") or 0, opt.training.get("n_sdf_points")
-    n_batches = engine_base.count_batches(data, opt.batch_size)
+    train_data, val_data = (data, data.val) if data is not None else engine_base.load_dataset(opt)
+    seed = opt.get("seed") or 0
+    loader = train_data.setup_loader(opt, shuffle=True, drop_last=True, pin_memory=dev.type == "cuda")
+    n_batches = engine_base.count_batches(train_data, opt.batch_size)
     graph = ShapeGraph.from_opt(opt, dtype=resolve_compute_dtype(opt, dev))
     graph = init_like_flax(graph, seed).to(dev).train()
     checkpoint.stage_pretrained(graph, opt, "shape")
@@ -279,10 +342,11 @@ def train(opt, data, output_path, device=None):
         return metrics
 
     def run_validation(ep):
-        cd = validate(graph, data, opt, output_path, dev)["val_metric"]
-        return cd, {"eval/cd": cd}
+        res = validate(graph, val_data, opt, output_path, dev)
+        acc, comp = float(res["acc"].mean()), float(res["comp"].mean())
+        return res["val_metric"], {"eval/dist_acc": acc, "eval/dist_cov": comp}
 
     return engine_base.train_loop(
-        opt, data, output_path, graph, optimizer, lambda idx, ep: to_device(data.batch(idx, ep, seed, n_sdf), dev),
-        step, run_validation, "CD", start,
+        opt, loader, output_path, graph, optimizer, lambda batch: to_device(batch, dev), step, run_validation, "CD",
+        start, train_scalars=lambda batch, it: train_metrics(graph, batch, opt, dev),
     )

@@ -1,8 +1,9 @@
-"""Training CLI (the shape and depth engines of ``train.py``, one card).
+"""Training CLI (the shape and depth engines of ``train.py``), in one process or several.
 
-    python -m zeroshape_tpu_torch.train [--yaml=options/shape_gen.yaml | --task=depth] [--max_epoch=2] \\
-        [--optim.lr=1.e-4] [--data.analytic.n_objects=4] [--pretrain.depth=DIR/best.ckpt] [--load=FILE] \\
+    python -m zeroshape_tpu_torch.train [--yaml=options/shape_gen.yaml | --task=depth] [--data.root=DIR] \\
+        [--max_epoch=2] [--optim.lr=1.e-4] [--pretrain.depth=DIR/best.ckpt] [--load=FILE] [--resume] \\
         [--device=cpu] [--output_path=DIR]
+    torchrun --nproc_per_node=N -m zeroshape_tpu_torch.train ...     # N ranks (DDP-style data parallel)
 
 The engine follows the JAX rule (``train.py:55``): the first ``_`` token of
 the ``--yaml`` file's name, ``depth`` or ``shape`` (``shape`` without a
@@ -16,25 +17,26 @@ them. A shape run stages ``pretrain.depth`` (a depth run's ``best.ckpt``)
 or ``arch.depth.pretrained`` into its fresh graph; ``--load`` restores a
 checkpoint's weights, ``--resume`` the run in ``output_path``.
 
-The data is the analytic split that ``scripts/generalize_e2e.py`` writes
-(``data.analytic``: 40 objects x 8 views at the model's size, seed 0, the
-last view of each object for validation), made in memory by
-``data.analytic.train_samples``; its held-out objects are not made here.
-Checkpoints and event files go to ``output_path`` (default
-``{output_root}/{group}/{name}``).
+The data are the datasets ``data.dataset_train`` / ``data.dataset_test``
+name (``synthetic``, ``pix3d``, ``ocrtoc``, ``omniobj3d``) under
+``data.root``, as ``train.py`` reads them; the recipes' root is the tree
+``python -m zeroshape_tpu_torch.generalize_e2e gen`` writes
+(``/tmp/gen_data``: 40 analytic objects x 8 views and 8 held-out objects).
+Under ``torchrun`` each rank joins the process group first
+(``parallel.dist.init_distributed_from_env``), trains on its rows of every
+global batch of ``batch_size``, and only rank 0 writes. Checkpoints and
+event files go to ``output_path`` (default ``{output_root}/{group}/{name}``).
 """
 
 from __future__ import annotations
 
 import os
 import sys
-import time
 
 from zeroshape_tpu_torch import config
-from zeroshape_tpu_torch.data import analytic
+from zeroshape_tpu_torch.parallel.dist import init_distributed_from_env
 from zeroshape_tpu_torch.runtime import depth_engine, shape_engine
 
-ANALYTIC = {"n_objects": 40, "n_views": 8, "seed": 0, "n_pc_points": 10000, "n_sdf_points": 20000, "val_views": 1}
 ENGINES = {"depth": depth_engine, "shape": shape_engine}
 
 
@@ -57,7 +59,7 @@ def options(argv):
     cli = config.parse_arguments(argv)
     task = task_of(cli)
     base = config.depth_gen_opt() if task == "depth" else config.shape_gen_opt()
-    opt = config.override_options(base, {"group": task, "output_root": "output", "data": {"analytic": ANALYTIC}})
+    opt = config.override_options(base, {"group": task, "output_root": "output"})
     if cli.get("yaml"):
         opt = config.override_options(opt, config.load_options(cli.yaml))
     opt = config.override_options(opt, cli)
@@ -69,14 +71,9 @@ def options(argv):
 
 
 def main(argv=None):
+    init_distributed_from_env()
     opt = options(sys.argv[1:] if argv is None else argv)
-    t0 = time.perf_counter()
-    a = opt.data.analytic
-    data = analytic.train_samples(a.n_objects, a.n_views, opt.H, a.seed, a.n_pc_points, a.n_sdf_points,
-                                  a.val_views)
-    print(f"analytic data: {len(data)} training views, {len(data.val)} validation views "
-          f"({opt.H}^2) made in {time.perf_counter() - t0:.1f} s")
-    return ENGINES[opt.task].train(opt, data, opt.output_path, device=opt.get("device"))
+    return ENGINES[opt.task].train(opt, None, opt.output_path, device=opt.get("device"))
 
 
 if __name__ == "__main__":
