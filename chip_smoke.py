@@ -1,16 +1,20 @@
 """Drive the PyTorch/CUDA port on one GPU: build its kernels, hold each
 against its plain version, run the full-size main path and export a mesh,
 run the scoring and evaluation path at full size, then shape training, the
-accuracy gate, depth pretraining and its staging into shape training, and
-the CLIs on datasets written to disk, in one process and in two.
+accuracy gate, depth pretraining and its staging into shape training, the
+CLIs on datasets written to disk, in one process and in two, and the visual
+layer: the turntable renderer, the dense decode with attention, the demo
+CLI's three runs and the engines' dumps.
 
     python3 chip_smoke.py
 
 Phases (one line or more each, any failure exits non-zero):
-  1. the card's name and power limit (nvidia-smi);
+  1. the card's name and power limit (nvidia-smi); which of PIL, cv2,
+     matplotlib, PyYAML and TensorBoard the host has;
   2. build the kernels from csrc/ with nvcc, one process per source, all
      started together: the fused implicit decoder (K1) and the Chamfer
-     kernels (K2, K3); ptxas's register and spill lines;
+     kernels (K2, K3); ptxas's register and spill lines; beside them the GIF
+     encoder (csrc/gif.cpp, g++);
   3. K1: the SASS counts of its tensor-core (HGMMA) and bulk-copy (UBLKCP)
      instructions where cuobjdump exists; K1 against its plain version
      (``Implicit.decode`` in fp32) at full width (C=256, 8 heads, 2 blocks,
@@ -83,7 +87,8 @@ Phases (one line or more each, any failure exits non-zero):
      recipe at full width, bf16, batch 8) on phase 11's data: 2 epochs of 3
      steps, validation before the first step and after epoch 2, then the
      final metrics written to ``best_val.txt``; s/step, samples/s, peak
-     memory, losses and every depth metric; no K1/K2/K3 launch;
+     memory, losses and every depth metric; no K1/K2/K3 launch; its visual
+     dumps (``vis_log/iter_0``, ``dump_synthetic``);
  14. 20 depth steps on one fixed batch of 8, continuing the run's optimizer:
      the last 5 losses must average below 0.9x the first 5;
  15. one fp32 depth step at H=64 on the card and on the CPU (TF32 off, the
@@ -102,7 +107,8 @@ Phases (one line or more each, any failure exits non-zero):
      and 16 held-out views before and after; s/step, the loader's wait and
      its share of the steps' time, the launches of validation and of the
      train-split metrics (K1 and K2 in both); ``train/dist_acc`` and
-     ``eval/dist_acc`` finite;
+     ``eval/dist_acc`` finite; with ``eval.n_vis=2`` and ``freq.save_vis=2``
+     (phase 27);
  20. ``python -m zeroshape_tpu_torch.evaluate --resume`` of that run in the
      final posture with brute force: the result files parsed back,
      ``cd_cat.txt`` with ``prim``, ``ho0`` and ``ho1``; s/sample;
@@ -113,7 +119,32 @@ Phases (one line or more each, any failure exits non-zero):
      backend rule): ``python -m zeroshape_tpu_torch.dist_check``'s fp32 step
      against one rank's (each gradient leaf within 1e-4 of its norm, or 4x
      the one-rank step's card-vs-CPU difference) and its evaluation (CD
-     1e-3); the evaluate CLI on two ranks against phase 20 (CD 1e-3 a sample).
+     1e-3); the evaluate CLI on two ranks against phase 20 (CD 1e-3 a sample);
+ 23. the turntable renderer on phase 5's mesh (15 views, 320^2, 2^18
+     points): the card against the CPU on the same injected uniforms, >= 99%
+     of pixels equal; its CUDA-event time and the GIF encoder's seconds;
+ 24. the dense 129^3 decode with attention (``recon.reconstruct_with_attn``)
+     of the main path's model and image: its occupancy against sigmoid(25 x
+     K1) of the same caches (within 1e-6 wherever K1's logit is over 2 from
+     0, inside/outside equal on 98% of the grid: bf16 autocast rounds every
+     activation, K1 keeps fp32 accumulators), attention finite in [0, 1],
+     the card against the CPU in fp32 at vox 16 (level and attention 1e-4);
+     seconds and peak memory;
+ 25. ``python -m zeroshape_tpu_torch.demo`` in subprocesses on a copy of
+     ``examples/`` at 224^2, vox 128, with PIL, cv2 and matplotlib blocked
+     and a checkpoint of calibrated random weights: the attention path,
+     ``--eval.dump_attn!`` (K1, 2 launches an image) and the depth task; every file the JAX demo writes, parsed back
+     (PNGs by the port's decoder, GIF frames counted by walking the blocks:
+     272 an attention sweep, 15 a turntable; PLY and OBJ headers); seconds
+     an image;
+ 26. the evaluation dumps of phases 9 and 20-22: every sample's files in
+     ``dump_{dataset}/`` (phases 9 and 21, on calibrated fields: a mesh and
+     a 15-frame turntable for every sample) and ``results_test.html``; the
+     dumps' seconds a sample and their share of the CLI's time; two ranks
+     dump each sample once;
+ 27. the training-time dumps of phase 19: ``vis_0/`` and ``vis_1/`` with two
+     attention GIFs each and their galleries, ``vis_log/iter_0`` and
+     ``vis_log/iter_2``.
 Then one JSON line of kernel numbers, the nvidia-smi line again, and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -312,7 +343,7 @@ def check_k1(dev):
 
 
 def main_path(dev):
-    """The full-size 128^3 reconstruction through ``recon``; returns (model, launches, level)."""
+    """The full-size 128^3 reconstruction through ``recon``; returns (model, launches, level, batch)."""
     from zeroshape_tpu_torch import recon
     from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode
 
@@ -342,7 +373,7 @@ def main_path(dev):
     times = recon.time_reconstructions(model, batch, gen, reps=5)
     print(f"main path: median {np.median(times):.4f} s/reconstruction over {len(times)} reps "
           f"(min {min(times):.4f}, max {max(times):.4f})")
-    return model, launches, level[0].float().cpu().numpy()
+    return model, launches, level[0].float().cpu().numpy(), batch
 
 
 def sampler_determinism(level, dev):
@@ -369,9 +400,10 @@ def sampler_determinism(level, dev):
 
 def build_kernels():
     """Build every kernel library, one nvcc per source, all started together."""
-    from zeroshape_tpu_torch.ops import chamfer, implicit_kernel
+    from zeroshape_tpu_torch.ops import _build, chamfer, implicit_kernel
 
-    sources = {"implicit_decoder.cu": implicit_kernel.build, "chamfer.cu": chamfer.build}
+    sources = {"implicit_decoder.cu": implicit_kernel.build, "chamfer.cu": chamfer.build,
+               "gif.cpp": lambda: _build.build("gif.cpp", "zsgif")}
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {name: pool.submit(fn) for name, fn in sources.items()}
     for name, fut in futures.items():
@@ -595,13 +627,17 @@ def evaluate_posture(model, samples, training):
                     f.write(shape_engine.full_results_line(res["idx"][i], res["acc"][i], res["comp"][i], res["f_score"][i]))
             shape_engine.write_summaries(tmp, opt, ["prim"], res["acc"], res["comp"], res["f_score"],
                                          res["category_label"], res["val_metric"])
+        else:  # the main path's calibrated field: a mesh and a turntable for every sample
+            eval_dumps(tmp, opt.data.dataset_test, res["idx"], "the final posture", meshes=True)
         parse_results(tmp, res, thresholds)
     k = len(samples)
     want = {"K1": k, "K2": 288 * k, "K3": 0} if not training else {"K1": 2 * k, "K2": 6 * k, "K3": 72 * k}
     want["plain"] = 0  # the shipped decoder decodes through K1 only
     print(f"evaluation, {name} posture ({'coarse-to-fine decode, pruned' if training else 'dense decode, exhaustive'} "
           f"search), {k} samples at batch 2: CD {res['val_metric']:.6f}, launches {n} (expected {want}); "
-          f"{seconds / k:.3f} s/sample over the run, per batch {[round(x, 4) for x in res['s_per_sample']]}")
+          f"{seconds / k:.3f} s/sample over the run, per batch {[round(x, 4) for x in res['s_per_sample']]}"
+          + ("" if training else f"; the dumps {res['dump_seconds'] / k:.4f} s/sample, "
+                                 f"{res['dump_seconds'] / seconds:.1%} of the run"))
     if n != want:
         fail(f"{name} posture launched {n}, expected {want}")
     if not all(np.isfinite(res[x]).all() for x in ("acc", "comp", "f_score")):
@@ -654,8 +690,9 @@ def train_run(dev):
     data = analytic.train_samples(n_objects=4, n_views=8, H=224, seed=0)
     print(f"training data: {len(data)} training and {len(data.val)} validation views (224^2) made in "
           f"{time.perf_counter() - t0:.1f} s")
-    opt = config.override_options(config.shape_gen_opt(), {
-        "max_epoch": 2, "tb": None, "freq": {"print": 1, "scalar": 3, "ckpt_latest": 1000, "eval": 2}})
+    opt = config.override_options(config.shape_gen_opt(), {  # no viz samples: phase 19 dumps them
+        "max_epoch": 2, "tb": None, "eval": {"n_vis": 0}, "freq": {"print": 1, "scalar": 3, "ckpt_latest": 1000,
+                                                                    "eval": 2}})
     out = tempfile.mkdtemp()  # checkpoints of ~2.3 GB each: removed at once
     try:
         with instrumented(shape_engine, "validate") as (steps, vals):
@@ -994,7 +1031,7 @@ def depth_run(dev, data, out):
     result, its options)."""
     from zeroshape_tpu_torch import config
     from zeroshape_tpu_torch.metrics.depth_metrics import metric_keys
-    from zeroshape_tpu_torch.runtime import depth_engine
+    from zeroshape_tpu_torch.runtime import depth_engine, engine_base
 
     opt = config.override_options(config.depth_gen_opt(), {
         "max_epoch": 2, "tb": None, "freq": {"print": 1, "scalar": 3, "ckpt_latest": 1000, "eval": 2}})
@@ -1030,8 +1067,14 @@ def depth_run(dev, data, out):
         fail("depth metrics not finite")
     if list(written) != keys or any(abs(float(written[k]) - final[k]) > 1e-6 for k in keys):
         fail(f"best_val.txt {written} does not hold the final metrics {final}")
-    if sorted(files) != ["best.ckpt", "best_val.txt", "checkpoint/ep1.ckpt", "latest.ckpt"]:
-        fail(f"depth run files {files}")
+    viz = [int(s["idx"][0]) for s in engine_base.viz_samples(data.val, opt.eval.n_vis)]
+    want = ["best.ckpt", "best_val.txt", "checkpoint/ep1.ckpt", "latest.ckpt"]
+    want += [f"vis_log/iter_0/{i}_{f}" for i in viz for f in ("depth_est.png", "depth_input.png", "image_input.png",
+                                                              "mask_input.png", "seen_surface.ply")]
+    want += [f"dump_synthetic/{int(s['idx'])}_{f}" for s in data.val for f in ("depth_est.png", "image_input.png")]
+    if sorted(files) != sorted(want):
+        fail(f"depth run files {files}, want {sorted(want)}")
+    check_dumps(out)
     if any(every.values()):
         fail(f"the depth run launched {every}: it has no kernel and no implicit decoder")
     return res, opt
@@ -1156,7 +1199,7 @@ def staged_run(dev, data, depth_ckpt, out):
     from zeroshape_tpu_torch.weights import init_like_flax
 
     opt = config.override_options(config.shape_gen_opt(), {
-        "max_epoch": 1, "tb": None, "pretrain": {"depth": depth_ckpt},
+        "max_epoch": 1, "tb": None, "pretrain": {"depth": depth_ckpt}, "eval": {"n_vis": 0},
         "freq": {"print": 1, "scalar": 3, "ckpt_latest": 1000, "eval": 1}})
     pre = torch.load(depth_ckpt, map_location="cpu", weights_only=True)["graph"]
     fresh = init_like_flax(ShapeGraph.from_opt(opt), opt.seed).state_dict()
@@ -1268,7 +1311,7 @@ def train_cli(root, out):
     from zeroshape_tpu_torch import train
     from zeroshape_tpu_torch.runtime import shape_engine
 
-    argv = cli_argv(root, out)
+    argv = cli_argv(root, out) + ["--eval.n_vis=2", "--freq.save_vis=2"]  # the dumps of phase 27
     metric_calls, metrics_fn = [], shape_engine.train_metrics
 
     def counted(*args, **kwargs):
@@ -1303,6 +1346,7 @@ def train_cli(root, out):
         fail(f"train CLI: {len(s_step)} steps, scalars {train_scalars}, validations {res['val_scalars']}")
     if not in_val["K1"] or not in_val["K2"] or not in_metrics["K1"] or not in_metrics["K2"] or in_val["plain"]:
         fail(f"train CLI launches: validation {in_val}, train-split metrics {in_metrics} (want K1 and K2)")
+    training_dumps(root, out)
     return summed([in_val, in_metrics]), res
 
 
@@ -1325,8 +1369,10 @@ def evaluate_cli(argv, what, n):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     n_launch = launch_counts()
+    res["seconds"] = seconds
     print(f"evaluate CLI, {what}: {len(res['acc'])} samples, CD {res['val_metric']:.6f}, {seconds:.1f} s with the "
-          f"graph's set-up, {np.mean(res['s_per_sample']):.4f} s/sample in the loop; launches {n_launch}")
+          f"graph's set-up, {np.mean(res['s_per_sample']):.4f} s/sample in the loop; launches {n_launch}; the dumps "
+          f"{res['dump_seconds'] / n:.4f} s/sample, {res['dump_seconds'] / seconds:.1%} of the CLI's time")
     if len(res["acc"]) != n or not all(np.isfinite(res[k]).all() for k in ("acc", "comp", "f_score")):
         fail(f"evaluate CLI, {what}: {len(res['acc'])} samples, metrics {res['acc']}")
     return res, n_launch
@@ -1347,6 +1393,7 @@ def evaluate_tree(root, out):
         fail("the full results do not hold the returned metrics")
     if n["K1"] != 20 or n["K2"] != 288 * 20 or n["K3"]:
         fail(f"final posture launches {n}, expected K1 20, K2 {288 * 20}, K3 0")
+    eval_dumps(out, "synthetic", res["idx"], "the evaluate CLI on the tree")
     return res, n
 
 
@@ -1433,6 +1480,7 @@ def evaluate_layouts(root, out):
                 "--eval.batch_size=2", "--eval.vox_res=128"] + extra
         _, n_launch = evaluate_cli(argv, f"{dataset} tree, validation posture", n)
         cds, cats = read_results(dump, dataset)
+        eval_dumps(dump, dataset, sorted(cds), f"the {dataset} tree", meshes=True)
         want = {"K1": 2 * n, "K2": 6 * n, "K3": 72 * n, "plain": 0}
         if len(cds) != n or n_launch != want:
             fail(f"{dataset}: {len(cds)} result rows, launches {n_launch}, expected {want}")
@@ -1462,7 +1510,8 @@ def two_ranks(root, out, one_rank, cli_run):
     one, two, cpu, two_train = (os.path.join(out, d) for d in ("dc1", "dc2", "dc_cpu", "two_rank_train"))
     t0 = time.perf_counter()
     # validation at eval batch 2 (one view a rank; phase 19's is 1): the surface draws follow each sample's index
-    argv = ["zeroshape_tpu_torch.dist_check", two, "--full", "train"] + cli_argv(root, two_train) + ["--eval.batch_size=2"]
+    argv = ["zeroshape_tpu_torch.dist_check", two, "--full", "train"] + cli_argv(root, two_train) + [
+        "--eval.batch_size=2", "--eval.n_vis=0"]
     launch = subprocess.run(run + argv, env=env, capture_output=True, text=True, timeout=900)
     if launch.returncode:
         fail(f"two-rank dist_check and train CLI failed:\n{launch.stdout[-3000:]}\n{launch.stderr[-3000:]}")
@@ -1519,11 +1568,287 @@ def two_ranks(root, out, one_rank, cli_run):
     if launch.returncode:
         fail(f"two-rank evaluate CLI failed:\n{launch.stdout[-3000:]}\n{launch.stderr[-3000:]}")
     cds, _ = read_results(dump, "synthetic")
+    one_files, two_files = (sorted(os.listdir(os.path.join(d, "dump_synthetic"))) for d in (out, dump))
+    eval_dumps(dump, "synthetic", sorted(cds), "the evaluate CLI on two ranks")
+    print(f"two ranks' dumps: {len(two_files)} files of {len({f.split('_')[0] for f in two_files})} samples, "
+          f"the same names as one rank's: {one_files == two_files}")
+    if one_files != two_files:
+        fail("two ranks did not dump every sample once, as one rank does")
     gap = max(abs(cds[i] - (one_rank["acc"][i] + one_rank["comp"][i]) / 2) for i in range(len(one_rank["acc"])))
     print(f"evaluate CLI on two ranks (one card): {len(cds)} rows in {time.perf_counter() - t0:.1f} s, files "
           f"{sorted(os.listdir(dump))}; largest CD gap to one rank {gap:.3e} (printed at 4 decimals)")
     if len(cds) != len(one_rank["acc"]) or gap > 1e-3:
         fail(f"two-rank evaluation off one rank's by {gap}")
+
+
+# ---------------------------------------------------------------------------
+# the visual layer (phases 23-27)
+# ---------------------------------------------------------------------------
+
+def check_dumps(folder):
+    """Parse every dump file under ``folder`` back: PNGs through the port's
+    decoder, GIFs by walking their blocks, PLY and OBJ headers. Returns
+    ``{relative path: GIF frames}``."""
+    from zeroshape_tpu_torch import gif
+    from zeroshape_tpu_torch.data import native
+
+    frames = {}
+    for d, _, fs in os.walk(folder):
+        for f in fs:
+            path = os.path.join(d, f)
+            if f.endswith(".png"):
+                img = native.decode_png(path)
+                if img.ndim != 3 or img.dtype != np.uint8 or min(img.shape[:2]) < 8:
+                    fail(f"{path}: a PNG of {img.shape} {img.dtype}")
+            elif f.endswith(".gif"):
+                info = gif.info(path)
+                if info["loop"] != 0 or not info["frames"]:
+                    fail(f"{path}: {info['frames']} frames, loop {info['loop']}")
+                frames[os.path.relpath(path, folder)] = info["frames"]
+            elif f.endswith(".ply"):
+                with open(path, "rb") as fh:
+                    if fh.read(36) != b"ply\nformat binary_little_endian 1.0\n":
+                        fail(f"{path}: not a binary PLY")
+            elif f.endswith(".obj"):
+                with open(path) as fh:
+                    if not fh.readline().startswith("mtllib "):
+                        fail(f"{path}: not a textured OBJ")
+    return frames
+
+
+EVAL_DUMPS = ("depth_est.png", "image_input.png", "mask_input.png", "pointclouds_comp.ply")
+
+
+def eval_dumps(out, dataset, idx, what, meshes=False):
+    """``dump_{dataset}/`` holds every sample's files of a final evaluation
+    (the mesh and its 15-frame turntable where marching cubes found a
+    surface; with ``meshes``, for every sample: calibrated weights) and
+    ``results_test.html`` lists every 10th sample."""
+    import re
+
+    folder = os.path.join(out, f"dump_{dataset}")
+    files = sorted(os.listdir(folder))
+    frames = check_dumps(folder)
+    with_mesh = [i for i in idx if f"{i}_mesh.ply" in files]
+    want = sorted([f"{i}_{f}" for i in idx for f in EVAL_DUMPS]
+                  + [f"{i}_{f}" for i in with_mesh for f in ("mesh.ply", "mesh_viz.gif")])
+    html = open(os.path.join(out, "results_test.html")).read()
+    listed = [int(x) for x in re.findall(r"<tr><th>(\d+)</th>", html)]
+    print(f"dumps of {what}: {len(files)} files in dump_{dataset}/ for {len(idx)} samples ({len(with_mesh)} with a "
+          f"mesh and turntable); results_test.html {len(html)} bytes, samples {listed}")
+    if files != want or listed != sorted(int(i) for i in idx)[::10] or any(n != 15 for n in frames.values()):
+        fail(f"dumps of {what}: {files} (want {want}), html samples {listed}, turntable frames {set(frames.values())}")
+    if meshes and len(with_mesh) != len(idx):
+        fail(f"dumps of {what}: meshes and turntables for {with_mesh} of {list(idx)}")
+
+
+def training_dumps(root, out):
+    """Phase 27: the train CLI's ``vis_0/``, ``vis_1/`` (validations), their
+    galleries and ``vis_log/iter_0``, ``vis_log/iter_2`` (``freq.save_vis=2``),
+    each with both viz samples' files and 272-frame attention GIFs."""
+    from zeroshape_tpu_torch import config
+    from zeroshape_tpu_torch.data.synthetic import SyntheticDataset
+    from zeroshape_tpu_torch.runtime import engine_base
+
+    opt = config.shape_gen_opt()
+    opt.data.root = root
+    viz = [int(s["idx"][0]) for s in engine_base.viz_samples(SyntheticDataset(opt, split="test"), 2)]
+    names = ("attn.gif", "depth_est.png", "image_input.png", "mask_input.png", "pointclouds_comp.ply",
+             "seen_surface.ply")
+    folders = ["vis_0", "vis_1", "vis_log/iter_0", "vis_log/iter_2"]
+    for folder in folders:
+        files = sorted(os.listdir(os.path.join(out, folder)))
+        want = sorted([f"{i}_{f}" for i in viz for f in names] + [f"{i}_mesh.ply" for i in viz
+                                                                  if f"{i}_mesh.ply" in files])
+        frames = check_dumps(os.path.join(out, folder))
+        if files != want or sorted(frames.values()) != [272, 272]:
+            fail(f"training dumps in {folder}: {files} (want {want}), GIF frames {frames}")
+    pages = [f for f in sorted(os.listdir(out)) if f.endswith(".html")]
+    print(f"training dumps (phase 27): viz samples {viz}; {folders} each with two 272-frame attention GIFs; "
+          f"galleries {pages}")
+    if pages != ["results_ep0.html", "results_ep1.html"] or sorted(os.listdir(os.path.join(out, "vis_log"))) != [
+            "iter_0", "iter_2"]:
+        fail(f"training galleries {pages} or vis_log {os.listdir(os.path.join(out, 'vis_log'))}")
+
+
+def renderer(dev, verts, faces):
+    """Phase 23: the turntable of the main path's mesh on the card against the
+    CPU with the same uniforms; the card's CUDA-event time; the GIF encoder's."""
+    from zeroshape_tpu_torch import gif
+    from zeroshape_tpu_torch.ops import render
+
+    v = verts - verts.mean(0)
+    tri = render.mesh_triangles(v / (np.abs(v).max() + 1e-8), faces)
+    n, views, size = 1 << 18, 15, 320
+    g = torch.Generator().manual_seed(0)
+    u, r = torch.rand(n, generator=g), torch.rand(n, 2, generator=g)
+    card = render.render_turntable(tri, n_views=views, image_size=size, n_points=n, u=u, r=r, device=dev).cpu()
+    cpu = render.render_turntable(tri, n_views=views, image_size=size, n_points=n, u=u, r=r, device="cpu")
+    equal = float((card == cpu).all(-1).float().mean())
+    step = int((card.int() - cpu.int()).abs().max())
+    tri_dev, gen = torch.as_tensor(tri, device=dev), torch.Generator(device=dev).manual_seed(0)
+    ms = cuda_ms(lambda: render.render_turntable(tri_dev, gen, n_views=views, image_size=size, n_points=n,
+                                                 device=dev), warmup=2, iters=5)
+    t0 = time.perf_counter()
+    data = gif.encode(card.numpy(), 100)
+    gif_s = time.perf_counter() - t0
+    covered = float((card != 255).any(-1).float().mean())
+    print(f"renderer ({len(tri)} faces, {views} views, {size}^2, {n} points): the card equals the CPU on {equal:.6f} "
+          f"of pixels (largest |d| {step}), the mesh covers {covered:.3f} of them; {ms:.3f} ms a turntable "
+          f"(CUDA events); its GIF encoded in {gif_s:.3f} s, {len(data)} bytes")
+    if equal < 0.99 or covered < 0.01 or gif.info(data)["frames"] != views:
+        fail(f"renderer: {equal} of pixels equal to the CPU's, coverage {covered}")
+    return ms
+
+
+CONFIDENT, FLIPS = 2.0, 2e-2  # phase 24: past the pass's largest bf16 logit error (1.35); a share of the grid
+
+
+def attention_pass(dev, model, batch):
+    """Phase 24: ``recon.reconstruct_with_attn`` at vox 128 on the main path's
+    model and image; its occupancy against K1's on the dense grid; the card
+    against the CPU in fp32 at vox 16."""
+    from zeroshape_tpu_torch import config, recon
+    from zeroshape_tpu_torch.metrics import eval3d
+    from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    recon.reconstruct_with_attn(model, batch, gen, vox_res=16)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out, level, world, attn = recon.reconstruct_with_attn(model, batch, gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    S = recon.VOX_RES + 1
+    with torch.inference_mode():
+        caches = model.graph.impl_network.encode(out["latent_depth"])
+        k1 = recon.decode_points(model, caches, eval3d.get_dense_3D_grid(recon.VOX_RES, device=dev)[None])[0]
+    # the pass's own occupancy against K1's of the same caches, sharpened alike. The pass decodes under bf16
+    # autocast (the JAX path's arithmetic): every activation is rounded to bf16 where K1 keeps fp32
+    # accumulators, 0.22 logit apart on average and 1.35 at most (PERF.md), so the two may part only near
+    # the surface: where K1's logit is over CONFIDENT from 0 both must saturate alike (within 1e-6), and
+    # inside/outside may differ on at most FLIPS of the grid. A pass without its sharpen would be at least
+    # 1 - sigmoid(2) = 0.12 off there; the same level one x-slice out of place must fail the bound too.
+    occ, k1 = level.reshape(-1).double(), k1.double()
+    ref = torch.sigmoid(model.sharpen * k1)
+    d = (occ - ref).abs()
+    sure = k1.abs() > CONFIDENT
+    d_sure = float(d[sure].max())
+    d_rolled = float((level.roll(1, 1).reshape(-1).double() - ref).abs()[sure].max())
+    flips = float(((occ > 0.5) != (k1 > 0)).double().mean())
+    print(f"dense decode with attention: its occupancy against sigmoid({model.sharpen:g} x K1) of the same caches, "
+          f"P={len(occ)}: max|d| {float(d.max()):.3e}, mean|d| {float(d.mean()):.3e}; where |K1 logit| > "
+          f"{CONFIDENT:g} ({float(sure.double().mean()):.4f} of the grid, logit std {float(k1.std()):.3f}): max|d| "
+          f"{d_sure:.3e} (the level one x-slice out of place: {d_rolled:.3e}); inside/outside differ on "
+          f"{flips:.5f} of the grid")
+    if not torch.isfinite(occ).all() or d_sure > 1e-6 or flips >= FLIPS:
+        fail(f"the attention pass does not decode K1's field (max |d| 1e-6 where |logit| > {CONFIDENT:g}, "
+             f"flips {FLIPS:g})")
+    if d_rolled <= 1e-6:
+        fail("phase 24's bound does not see the level one x-slice out of place")
+    a_min, a_max = float(attn.min()), float(attn.max())
+    inside = float((level > 0.5).float().mean())
+    print(f"dense decode with attention (vox 128, {S ** 3} points, {tuple(attn.shape)} attention): {seconds:.3f} s, "
+          f"peak {peak:.2f} GiB above the model; attention in [{a_min:.3e}, {a_max:.3e}], {inside:.4f} of the grid "
+          f"inside; world points {tuple(world.shape)}")
+    if not torch.isfinite(attn).all() or a_min < 0 or a_max > 1 or not torch.isfinite(world).all():
+        fail("attention maps not finite in [0, 1], or world points not finite")
+    # the card against the CPU in fp32 at vox 16, unsharpened
+    g32 = ShapeGraph.from_opt(config.full_opt(), dtype=torch.float32)
+    g32.load_state_dict(model.graph.state_dict())
+    got = {}
+    for where in (dev, torch.device("cpu")):
+        m = recon.ReconModel(copy.deepcopy(g32).to(where).eval(), None, 1.0, where)
+        _, lv, _, at = recon.reconstruct_with_attn(m, batch, torch.Generator(device=where).manual_seed(0),
+                                                   vox_res=16, num_points=1000)
+        got[where.type] = (lv.cpu(), at.cpu())
+    d_level = float((got["cuda"][0] - got["cpu"][0]).abs().max())
+    d_attn = float((got["cuda"][1] - got["cpu"][1]).abs().max())
+    print(f"dense decode with attention, fp32 at vox 16: the card against the CPU, level max|d| {d_level:.3e}, "
+          f"attention max|d| {d_attn:.3e}")
+    if d_level > 1e-4 or d_attn > 1e-4:
+        fail("the attention pass on the card disagrees with the CPU beyond 1e-4")
+    return seconds, peak
+
+
+DEMO_RUN = (  # with PIL, cv2 and matplotlib blocked, whether the host has them or not
+    "import json, sys\n"
+    "for m in ('PIL', 'cv2', 'matplotlib'):\n"
+    "    sys.modules[m] = None\n"
+    "from zeroshape_tpu_torch import demo\n"
+    "from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode\n"
+    "s = demo.main(sys.argv[1:])\n"
+    "print(json.dumps({'per_image_s': s, 'K1': fused_decode.launches}))\n"
+)
+DEMO_FILES = {  # the files of an image, as the JAX demo writes them (demo.py:201-250)
+    "attn": ("image_input.png", "mask_input.png", "attn.gif", "mesh.ply", "mesh_viz.gif"),
+    "fast": ("image_input.png", "mask_input.png", "mesh.ply", "mesh_viz.gif"),
+    "depth": ("image_input.png", "mask_input.png", "depth_est.png", "seen_surface_fixed.obj",
+              "seen_surface_fixed.mtl", "seen_surface_pred.obj", "seen_surface_pred.mtl"),
+}
+
+
+def demo_cli(dev):
+    """Phase 25: the demo CLI in a subprocess a run, on a copy of ``examples/``
+    at 224^2, vox 128: the shape task with attention (the default) and
+    without (K1, 2 launches an image), with seeded random weights calibrated
+    on the first image and given as ``--ckpt``, and the depth task. Returns
+    the fast path's K1 launches."""
+    from zeroshape_tpu_torch import demo, recon
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp()
+    try:
+        data = os.path.join(tmp, "examples")
+        shutil.copytree(os.path.join(here, "examples"), data, ignore=shutil.ignore_patterns("preds"))
+        names = sorted(n[:-4] for n in os.listdir(os.path.join(data, "images")))
+        opt = demo.options([f"--datadir={data}", "--eval.vox_res=128"])
+        samples, _ = demo.prepare_data(opt)
+        model = recon.build(opt, device=dev)
+        model.sharpen = 1.0  # the demo's posture with a checkpoint
+        shift, gain, n_act = recon.calibrate_random_field(model, samples[0])
+        ckpt = os.path.join(tmp, "calibrated.ckpt")
+        torch.save({"graph": model.graph.state_dict(), "epoch": 0, "iter": 0, "best_val": 1.0, "best_ep": 0}, ckpt)
+        del model
+        torch.cuda.empty_cache()
+        print(f"demo: seeded random weights calibrated on {names[0]} (shift {-shift:.4f}, gain {gain:g}, {n_act} "
+              f"active cells) as {os.path.getsize(ckpt) / 2**20:.0f} MiB of --ckpt")
+        fast_k1 = 0
+        for run, args in (("attn", [f"--ckpt={ckpt}"]), ("fast", [f"--ckpt={ckpt}", "--eval.dump_attn!"]),
+                          ("depth", ["--task=depth"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", DEMO_RUN, f"--datadir={data}", "--eval.vox_res=128"] + args,
+                                  cwd=here, capture_output=True, text=True, timeout=600)
+            seconds = time.perf_counter() - t0
+            if proc.returncode:
+                fail(f"demo ({run}) failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            empty = proc.stdout.count("Mesh is empty!")
+            preds = os.path.join(data, "preds")
+            files = sorted(os.listdir(preds))
+            frames = check_dumps(preds)
+            meshes = [n for n in names if f"{n}_mesh.ply" in files]
+            want = sorted(f"{n}_{f}" for n in names for f in DEMO_FILES[run]
+                          if n in meshes or f not in ("mesh.ply", "mesh_viz.gif"))
+            s = got["per_image_s"]
+            print(f"demo CLI, {run}: {len(files)} files, {len(meshes)} meshes ({empty} empty); GIF frames "
+                  f"{sorted(set(frames.values()))}; K1 launches {got['K1']}; seconds an image {[round(x, 4) for x in s]} "
+                  f"(steady {np.median(s[1:]):.4f}); the process {seconds:.1f} s")
+            if files != want or (run != "depth" and (empty != len(names) - len(meshes) or not meshes)):
+                fail(f"demo ({run}) wrote {files}, want {want}")
+            gif_frames = {f: n for f, n in frames.items()}
+            if any(n != (272 if f.endswith("attn.gif") else 15) for f, n in gif_frames.items()):
+                fail(f"demo ({run}) GIF frames {gif_frames}")
+            if got["K1"] != (2 * len(names) if run == "fast" else 0):
+                fail(f"demo ({run}) launched K1 {got['K1']} times")
+            if run == "fast":
+                fast_k1 = got["K1"]
+        return fast_k1
+    finally:
+        shutil.rmtree(tmp)
 
 
 def main():
@@ -1539,10 +1864,14 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
+    import importlib.util
+
+    found = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2", "matplotlib", "yaml", "tensorboard")}
+    print(f"host modules (the port needs none of them): {found}")
 
     build_kernels()
     k1 = check_k1(dev)
-    model, main_launches, level = main_path(dev)
+    model, main_launches, level, batch = main_path(dev)
 
     verts, faces = marching_cubes_mesh(level)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1553,6 +1882,7 @@ def main():
         fail("mesh empty or its vertices not finite")
     print(f"mesh: {len(verts)} vertices, {len(faces)} faces, {size} bytes of PLY")
     sampler_determinism(level, dev)
+    renderer(dev, verts / level.shape[0] * 3.0 - 1.5, faces)
 
     with torch.inference_mode():
         exact = unit_clouds(48, 10000, 10000, seed=5)  # one exact brute-force batch
@@ -1564,6 +1894,7 @@ def main():
         coarse = unit_clouds(192, 1024, 1024, seed=7)  # one coarse batch
         k3_err = max(check_k3(*coarse, "B=192, N=M=1,024"), check_k3(*unit_clouds(3, 1000, 777, seed=8), "B=3, N=1,000, M=777"))
     planted_rotation(dev)
+    attention_pass(dev, model, batch)
 
     t0 = time.perf_counter()
     samples = analytic.eval_samples(n_objects=N_EVAL, n_views=2, H=224, seed=0)
@@ -1613,14 +1944,16 @@ def main():
     finally:
         shutil.rmtree(root)
         shutil.rmtree(out)
+    demo_k1 = demo_cli(dev)
 
     # launches: the sum over the path runs (main path, final and validation
     # posture, the validations of the training run, the gate and the staged
     # run, the train CLI's validations and train-split metrics, the evaluate
-    # CLI on the tree and on the three layouts), each counted from 0
-    launches = {k: main_launches * (k == "K1") + sum(n[k] for n in (final, val, train_val, gate_val, staged_val,
-                                                                    cli_val, tree_eval, layout_eval))
-                for k in ("K1", "K2", "K3")}
+    # CLI on the tree and on the three layouts, the demo's fast path), each
+    # counted from 0
+    launches = {k: (main_launches + demo_k1) * (k == "K1") + sum(
+        n[k] for n in (final, val, train_val, gate_val, staged_val, cli_val, tree_eval, layout_eval))
+        for k in ("K1", "K2", "K3")}
     k1["launches"] = launches["K1"]
     kernels = [k1]
     for name, key, times, err, line in (

@@ -30,6 +30,7 @@ the coordinate encoder's gradients are ill-conditioned as above).
 
 import filecmp
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -125,6 +126,22 @@ def test_two_rank_evaluation_equals_one_rank(runs):
         assert filecmp.cmp(one / name, two / name, shallow=False), name
 
 
+def test_two_rank_dumps_hold_each_sample_once(runs):
+    """The evaluation's dumps (the final posture, 5 samples at eval batch 2, the
+    tail padded): each rank dumps the samples it scored, so the folder holds
+    every sample's files once, as one rank writes them; rank 0 writes the
+    gallery after the barrier, over every 10th sample."""
+    one, two = (sorted(os.listdir(runs[r] / "dump_synthetic")) for r in ("one", "two"))
+    assert one == two and sorted({int(f.split("_")[0]) for f in two}) == list(range(5))
+    assert {f.split("_", 1)[1] for f in two} >= {"image_input.png", "mask_input.png", "depth_est.png",
+                                                  "pointclouds_comp.ply"}
+    for r in ("one", "two"):
+        html = (runs[r] / "results_test.html").read_text()
+        assert re.findall(r"<tr><th>(\d+)</th>", html) == ["0"]
+        assert sorted(re.findall(r"<br/>([^<]+)</td>", html)) == sorted(f for f in one if f.startswith("0_")
+                                                                         and f.endswith((".png", ".gif")))
+
+
 def test_process_group_rules(monkeypatch):
     """The backend rule, the even split of a global batch, the no-op outside
     a process group."""
@@ -190,7 +207,10 @@ def test_train_cli_on_two_ranks_follows_one(runs):
     assert two["it"] == one["it"] == 2 and len(two["losses"]) == 2 and np.isfinite(two["losses"]).all()
     assert abs(two["losses"][0] - one["losses"][0]) <= 1e-4 * one["losses"][0], (two["losses"], one["losses"])
     assert [e for e, _ in two["val"]] == [0, 1] and abs(two["val"][0][1] - one["val"][0][1]) <= 1e-4 * one["val"][0][1]
-    assert sorted(os.listdir(runs["two_train"])) == ["best.ckpt", "checkpoint", "latest.ckpt"]
+    # with rank 0's visual dumps: vis_{ep} and its gallery at each validation, vis_log/iter_0 at the save_vis cadence
+    assert sorted(os.listdir(runs["two_train"])) == ["best.ckpt", "checkpoint", "latest.ckpt", "results_ep0.html",
+                                                     "results_ep1.html", "vis_0", "vis_1", "vis_log"]
+    assert sorted(os.listdir(runs["two_train"] / "vis_0")) == sorted(os.listdir(runs["one_train"] / "vis_0"))
     a, b = (torch.load(runs[r] / "latest.ckpt", weights_only=True, mmap=True) for r in ("one_train", "two_train"))
     assert (b["iter"], b["best_ep"]) == (a["iter"], a["best_ep"]) == (2, 1)
     assert a["graph"].keys() == b["graph"].keys()

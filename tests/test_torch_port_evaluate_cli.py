@@ -65,7 +65,15 @@ def root(tmp_path_factory):
 def _check_shape_files(out, dataset, res, label2cat):
     files = sorted(os.listdir(out))
     assert files == sorted(["data_list.txt", "cd_cat.txt", f"{dataset}_full_results.txt",
-                            f"quantitative_{dataset}.txt"]), files
+                            f"quantitative_{dataset}.txt", f"dump_{dataset}", "results_test.html"]), files
+    # every sample's dumps (shape_engine.py:778-824): the mesh and its turntable where marching cubes found a surface
+    dumps = sorted(os.listdir(out / f"dump_{dataset}"))
+    for i in res["idx"]:
+        mine = sorted(f[len(f"{i}_"):] for f in dumps if f.split("_")[0] == str(i))
+        assert mine in (["depth_est.png", "image_input.png", "mask_input.png", "pointclouds_comp.ply"],
+                        ["depth_est.png", "image_input.png", "mask_input.png", "mesh.ply", "mesh_viz.gif",
+                         "pointclouds_comp.ply"]), (i, mine)
+    assert sorted({int(f.split("_")[0]) for f in dumps}) == sorted(res["idx"].tolist())
     rows = open(out / f"{dataset}_full_results.txt").read().split("\n")
     assert rows[0] == "IND, CD, ACC, COMP, " + ", ".join(f"F-score@{t * 100:.2f}" for t in THRESHOLDS)
     assert len(rows) == len(res["acc"]) + 1
@@ -135,6 +143,9 @@ def test_evaluate_cli_depth_task_writes_best_val(root, tmp_path):
     out = tmp_path / "depth"
     means = evaluate_cli.main(["--task=depth"] + TINY + [f"--data.root={root}", "--data.synthetic.subset=analytic",
                                                          f"--output_path={out}"])
-    assert sorted(os.listdir(out)) == ["best_val.txt", "data_list.txt"]
+    assert sorted(os.listdir(out)) == ["best_val.txt", "data_list.txt", "dump_synthetic"]
+    # the first batch's images and depth estimates (depth_engine.py:296-319)
+    assert sorted(os.listdir(out / "dump_synthetic")) == [f"{i}_{f}" for i in (0, 1)
+                                                          for f in ("depth_est.png", "image_input.png")]
     lines = open(out / "best_val.txt").read().splitlines()
     assert lines == [f"{k}: {means[k]:.6f}" for k in metric_keys()]

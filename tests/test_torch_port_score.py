@@ -225,7 +225,10 @@ def test_evaluate_matches_jax_scoring(evaluator_setup, tmp_path, vox, training, 
     if training:  # validation writes no result files (shape_engine.py:605, 711)
         assert files == []
         return
-    assert files == ["cd_cat.txt", "quantitative_synthetic.txt", "synthetic_full_results.txt"]
+    # with the dumps of every sample (shape_engine.py:715-741) and the gallery (:772-776)
+    assert files == ["cd_cat.txt", "dump_synthetic", "quantitative_synthetic.txt", "results_test.html",
+                     "synthetic_full_results.txt"]
+    assert sorted({int(f.split("_")[0]) for f in os.listdir(tmp_path / "dump_synthetic")}) == list(range(len(samples)))
     rows = (tmp_path / "synthetic_full_results.txt").read_text().split("\n")
     assert rows[0] == "IND, CD, ACC, COMP, F-score@0.50, F-score@1.00, F-score@2.00, F-score@5.00, F-score@10.00, F-score@20.00"
     for i, row in enumerate(rows[1:]):

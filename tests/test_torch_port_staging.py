@@ -83,7 +83,16 @@ def test_depth_cli_writes_reference_checkpoints_and_best_val(run):
     assert [ep for ep, _ in res["val"]] == [0, 1] and res["best_val"] == res["val"][1][1]  # epoch 0 is not kept
     for _, scalars in res["val_scalars"]:
         assert list(scalars) == [f"eval/{k}" for k in metric_keys()] and np.isfinite(list(scalars.values())).all()
-    assert sorted(os.listdir(out)) == ["best.ckpt", "best_val.txt", "checkpoint", "latest.ckpt"]
+    # with the visual dumps: vis_log/iter_0 at the save_vis cadence (the step counter starts at 0;
+    # depth_engine.py:209-245) and the final evaluation's first batch (:296-319)
+    assert sorted(os.listdir(out)) == ["best.ckpt", "best_val.txt", "checkpoint", "dump_synthetic", "latest.ckpt",
+                                       "vis_log"]
+    assert os.listdir(out / "vis_log") == ["iter_0"]
+    viz = sorted(os.listdir(out / "vis_log" / "iter_0"))
+    names = ("depth_est.png", "depth_input.png", "image_input.png", "mask_input.png", "seen_surface.ply")
+    assert viz == sorted(f"{i}_{n}" for i in {f.split("_")[0] for f in viz} for n in names), viz
+    assert sorted(os.listdir(out / "dump_synthetic")) == [f"{i}_{n}" for i in (0, 1) for n in ("depth_est.png",
+                                                                                              "image_input.png")]
     lines = open(out / "best_val.txt").read().splitlines()
     assert lines == [f"{k}: {final[k]:.6f}" for k in metric_keys()]  # depth_engine.py:290-293
     assert all(re.fullmatch(r"d>1\.\d+: \d\.\d{6}|(rmse|l1_err|abs_rel): \d+\.\d{6}", line) for line in lines)

@@ -116,6 +116,8 @@ def eval_opt(opt, **eval_overrides):
         "hier_final": False,
         "hier_capacity": None,
         "f_thresholds": [0.005, 0.01, 0.02, 0.05, 0.1, 0.2],
+        "n_vis": 50,
+        "dump_attn": True,
         **eval_overrides,
     }
     opt.data = {"root": "data", "num_classes_test": 15, "max_img_cat": None, "dataset_train": "synthetic",
@@ -154,7 +156,7 @@ def shape_gen_opt(H=224):
     batch 8, 4096 SDF points, loss weights shape 1 / depth 1 / intr 10,
     lr = lr_ft = 1e-4, weight decay 0.05, the depth head initialised at
     0.001, validation at vox 128, batch 1, without brute force."""
-    return override_options(eval_opt(full_opt(H), batch_size=1, vox_res=128, brute_force=False), {
+    return override_options(eval_opt(full_opt(H), batch_size=1, vox_res=128, brute_force=False, n_vis=2), {
         "name": "shape_gen",
         "batch_size": 8,
         "max_epoch": 200,

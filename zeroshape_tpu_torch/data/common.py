@@ -6,7 +6,8 @@ PIL). Where an image must change size, :func:`resize_u8` stands in for
 PIL's ``Image.resize`` (bicubic with antialiasing, PIL's default filter):
 torch's antialiased bicubic on the uint8 image. The two are not bit-equal:
 within 2/255, on more than 99% of pixels equal (``tests/test_torch_port_data.py``).
-:func:`write_png` replaces the writers' ``PIL.Image.save``.
+:func:`write_png` replaces the writers' ``PIL.Image.save`` (the loaders' test
+trees and the visual dumps of :mod:`zeroshape_tpu_torch.vis`).
 """
 
 from __future__ import annotations
@@ -108,13 +109,13 @@ def _chunk(kind, body):
 
 
 def write_png(path, img):
-    """Write uint8 ``[H, W]`` (L) or ``[H, W, 3]`` (RGB) as an 8-bit PNG, every
-    row with filter 0 (none)."""
+    """Write uint8 ``[H, W]`` (L), ``[H, W, 3]`` (RGB) or ``[H, W, 4]`` (RGBA)
+    as an 8-bit PNG, every row with filter 0 (none)."""
     img = np.ascontiguousarray(img, np.uint8)
     if img.ndim == 3 and img.shape[-1] == 1:
         img = img[..., 0]
     h, w = img.shape[:2]
-    color = 0 if img.ndim == 2 else 2
+    color = 0 if img.ndim == 2 else {3: 2, 4: 6}[img.shape[-1]]
     rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
     with open(path, "wb") as f:
         f.write(native.PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))

@@ -17,10 +17,11 @@ engine's final evaluation: the shape engine writes
 ``{dataset}_full_results.txt``, ``cd_cat.txt`` and
 ``quantitative_{dataset}.txt``, the depth engine ``best_val.txt``, in the
 JAX formats, from rank 0. Under ``torchrun`` each rank scores its rows of
-every global batch of ``eval.batch_size``.
-
-Not here yet: the evaluation dumps (images, meshes, turntables, the HTML
-gallery); they wait for the port's ``vis``.
+every global batch of ``eval.batch_size``. The visual dumps go to
+``output_path/dump_{dataset}/``: every sample's image, mask, mesh,
+turntable GIF, depth and point-cloud comparison and rank 0's
+``results_test.html`` (shape), the first batch's images and depths
+(depth); each rank writes the samples it scored.
 """
 
 from __future__ import annotations

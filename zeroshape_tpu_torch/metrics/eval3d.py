@@ -21,6 +21,8 @@ import torch
 from zeroshape_tpu_torch import resolve_device
 from zeroshape_tpu_torch.camera import get_rotation_sphere
 from zeroshape_tpu_torch.ops.chamfer import chamfer_distance, nn_min_squared_fast, nn_one_way
+from zeroshape_tpu_torch.ops.image import resize_bilinear_separable
+from zeroshape_tpu_torch.vis import show_att_on_image
 
 DEFAULT_F_THRESHOLDS = (0.005, 0.01, 0.02, 0.05, 0.1, 0.2)
 ROT_BATCH = 48  # rotations per exact brute-force batch; the coarse stage takes 4x
@@ -186,6 +188,62 @@ def occupancy_grid_hierarchical(
     if return_cells:
         out = out + (ids, valid)
     return out if len(out) > 1 else level
+
+
+def occupancy_grid_with_attn(decode_fn, points, batch_size, vox_res, slices=1):
+    """The dense grid decode that also z-averages the decoder's attention
+    (``eval3d.py:283-308``; reference eval_3D.py:50-52).
+
+    ``decode_fn`` maps points ``[B, T, 3]`` to ``(logits [B, T], attn [B, T, L])``;
+    ``points`` is the x-major ``[(N+1)^3, 3]`` grid (:func:`get_dense_3D_grid`).
+    A tile of ``slices`` x-slices of ``S^2`` points is decoded at a time and
+    its attention averaged over z at once, so the whole ``[B, S^3, L]``
+    attention is never held. Returns ``(occ [B, S^3] sigmoid, attn_xy
+    [B, S, S, L] fp32)``, ``attn_xy[b, x, y]`` averaged over z.
+    """
+    S = vox_res + 1
+    occ, attn_xy = [], []
+    for x0 in range(0, S, slices):
+        n = min(slices, S - x0)
+        tile = points[x0 * S * S : (x0 + n) * S * S]
+        logits, attn = decode_fn(tile[None].expand(batch_size, -1, -1))
+        occ.append(logits)
+        attn_xy.append(attn.float().reshape(batch_size, n, S, S, -1).mean(dim=3))
+    return torch.sigmoid(torch.cat(occ, dim=1)), torch.cat(attn_xy, dim=1)
+
+
+def attention_frames(attn_xy, image, vox_res, feat_res, n_global=1):
+    """The serpentine sweep of attention overlays (``eval3d.py:311-338``;
+    reference eval_3D.py:60-80).
+
+    ``attn_xy [S, S, n_global + feat_res^2]`` is one sample's z-averaged
+    attention, ``image [H, W, 3]`` its float RGB in [0, 1]. Every 8th row of
+    the grid's y, the columns of x in steps of 8, left to right on rows
+    divisible by 16 and back on the others: each map (the global tokens'
+    sum added to every patch) resized to the image bilinearly
+    (``align_corners=False``, ``ops.image.resize_bilinear_separable``),
+    divided by its maximum and laid over the image (``vis.show_att_on_image``). Returns a list of ``[H, W, 3]`` float32
+    frames.
+    """
+    image = np.asarray(image, np.float32)
+    H, W = image.shape[:2]
+    N = vox_res
+    attn_xy = torch.as_tensor(np.asarray(attn_xy, np.float32))
+    S = attn_xy.shape[0]
+    attn_global = attn_xy[..., :n_global].sum(-1, keepdim=True)
+    attn_vis = attn_global[..., None] + attn_xy[..., n_global:].reshape(S, S, feat_res, feat_res)
+    cells = []
+    for row in range(0, N, 8):
+        cols = range(0, N // 8 * 8 + 1, 8) if row % 16 == 0 else range(N // 8 * 8, -1, -8)
+        cells += [(col, row) for col in cols]  # x is the column
+    if not cells:
+        return []
+    maps = resize_bilinear_separable(torch.stack([attn_vis[c, r] for c, r in cells]), (H, W)).numpy()
+    frames = []
+    for cur in maps:
+        cur = cur / max(cur.max(), 1e-12)
+        frames.append(show_att_on_image(image, cur))
+    return frames
 
 
 # ---------------------------------------------------------------------------

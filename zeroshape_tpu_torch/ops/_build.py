@@ -1,8 +1,9 @@
-"""Build a CUDA source of ``csrc/`` into a shared library at first use, and load it.
+"""Build a source of ``csrc/`` into a shared library at first use, and load it.
 
 Every kernel of the port is CUDA C++ for ``sm_90a`` with a plain C interface
-(each entry point returns its ``cudaError_t``). ``nvcc`` compiles a source
-into ``csrc/build/lib<name>.so`` when the library is missing or older than its
+(each entry point returns its ``cudaError_t``). ``nvcc`` compiles a ``.cu``
+source, and ``g++`` a host-only ``.cpp`` one (the GIF encoder), into
+``csrc/build/lib<name>.so`` when the library is missing or older than its
 source, and ``ctypes`` loads it once per process.
 """
 
@@ -26,38 +27,47 @@ def library_path(name):
 def build(source, name, flags=()):
     """Compile ``csrc/<source>`` into ``lib<name>.so`` if it is missing or stale.
 
-    ``flags`` are extra ``nvcc`` arguments (a ``-D`` for a variant). Returns
+    ``flags`` are extra compiler arguments (a ``-D`` for a variant). Returns
     ``(seconds spent building, compiler output)``; 0 and "" when the library
-    was already current. The output holds ``ptxas``'s register and spill
-    report (``-Xptxas -v``). Raises ``RuntimeError`` if ``nvcc`` fails.
+    was already current. For a ``.cu`` source the output holds ``ptxas``'s
+    register and spill report (``-Xptxas -v``). Raises ``RuntimeError`` if
+    the compiler fails or is missing.
     """
     src, lib = os.path.join(CSRC, source), library_path(name)
     if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
         return 0.0, ""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags, "-o", tmp, src,
-    ]
+    if source.endswith(".cpp"):
+        compiler = "g++"
+        cmd = [compiler, "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", *flags, "-o", tmp, src]
+    else:
+        from torch.utils.cpp_extension import CUDA_HOME
+
+        compiler = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
+        cmd = [
+            compiler, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags, "-o", tmp, src,
+        ]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"no compiler to build {source}: {e}") from e
     seconds = time.perf_counter() - t0
     log = res.stdout + res.stderr
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source} ({res.returncode}):\n{log}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed on {source} ({res.returncode}):\n{log}")
     os.replace(tmp, lib)
     return seconds, log
 
 
-def library(source, name, signatures, flags=()):
+def library(source, name, signatures, flags=(), restype=ctypes.c_int):
     """The loaded ``lib<name>.so``, built first (with ``flags``) if needed.
 
     ``signatures`` maps each C entry point to its ctypes ``argtypes``; every
-    entry point returns an ``int`` (its ``cudaError_t``).
+    entry point returns ``restype`` (an ``int``, its ``cudaError_t``, for the
+    kernels).
     """
     lib = _LOADED.get(name)
     if lib is None:
@@ -65,6 +75,6 @@ def library(source, name, signatures, flags=()):
         lib = ctypes.CDLL(library_path(name))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = restype
         _LOADED[name] = lib
     return lib

@@ -9,6 +9,9 @@ matrices reproduce: ``align_corners=True`` for the DPT fusion upsample,
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -19,6 +22,47 @@ def resize_bilinear(x, out_hw, align_corners=False):
         return x
     y = F.interpolate(x.float(), size=tuple(out_hw), mode="bilinear", align_corners=align_corners)
     return y.to(x.dtype)
+
+
+@lru_cache(maxsize=128)
+def linear_resize_matrix(in_size, out_size, align_corners):
+    """``[out_size, in_size]`` float32 linear-interpolation weights (a copy of
+    ``zeroshape_tpu/ops/image.py:_linear_resize_matrix``)."""
+    W = np.zeros((out_size, in_size), dtype=np.float32)
+    if in_size == 1:
+        W[:, 0] = 1.0
+        return W
+    for o in range(out_size):
+        if align_corners:
+            src = o * (in_size - 1) / max(out_size - 1, 1)
+        else:
+            src = (o + 0.5) * in_size / out_size - 0.5
+        src = min(max(src, 0.0), in_size - 1)
+        lo = int(np.floor(src))
+        hi = min(lo + 1, in_size - 1)
+        frac = src - lo
+        W[o, lo] += 1.0 - frac
+        W[o, hi] += frac
+    return W
+
+
+def resize_bilinear_separable(x, out_hw, align_corners=False):
+    """Bilinear resize of fp32 maps ``x [N, h, w]`` to ``[N, *out_hw]`` as the JAX
+    package computes it: rows, then columns, through the interpolation
+    matrices, each output summed in input order in fp32 (a multiply, then an
+    add). On the CPU this gives the JAX resize bit for bit, where
+    ``F.interpolate`` lands an ulp away; the attention frames truncate
+    ``255 * map`` to a colour-table index, so an ulp can change a colour."""
+    N, h, w = x.shape
+    Wh = torch.from_numpy(linear_resize_matrix(h, out_hw[0], align_corners)).to(x.device)
+    Ww = torch.from_numpy(linear_resize_matrix(w, out_hw[1], align_corners)).to(x.device)
+    rows = torch.zeros(N, out_hw[0], w, dtype=torch.float32, device=x.device)
+    for k in range(h):
+        rows = rows + Wh[None, :, k, None] * x[:, k, None, :]
+    out = torch.zeros(N, out_hw[0], out_hw[1], dtype=torch.float32, device=x.device)
+    for k in range(w):
+        out = out + Ww[None, None, :, k] * rows[:, :, k, None]
+    return out
 
 
 def upsample2x(x, align_corners=True):

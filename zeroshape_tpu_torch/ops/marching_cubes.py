@@ -230,7 +230,12 @@ def marching_cubes_mesh(level, isoval=0.5):
     level = np.asarray(level)
     S = level.shape[0]
     n = S - 1
-    base = np.stack(np.meshgrid(np.arange(n), np.arange(n), np.arange(n), indexing="ij"), -1).reshape(-1, 3)
+    # only the cubes whose corners straddle the isovalue make triangles; they
+    # are taken in the order of their flat index, as from the full meshgrid
+    inside = level >= isoval
+    corners = [inside[dx : dx + n, dy : dy + n, dz : dz + n] for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+    straddle = np.logical_or.reduce(corners) & ~np.logical_and.reduce(corners)
+    base = np.stack(np.nonzero(straddle), -1)
     corner_vals = np.take(
         level.reshape(-1),
         (base[:, None, 0] + _CORNER_OFF[None, :, 0]) * S * S

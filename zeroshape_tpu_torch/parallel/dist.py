@@ -47,6 +47,18 @@ def is_main():
     return rank() == 0
 
 
+def barrier():
+    """Wait for every rank (a no-op in one process)."""
+    if initialized():
+        dist.barrier()
+
+
+def local_valid_rows(n_valid, n_local):
+    """How many of this rank's ``n_local`` rows of a global batch fall inside
+    its first ``n_valid`` rows (the rest pad an uneven tail)."""
+    return max(0, min(n_local, n_valid - rank() * n_local)) if initialized() else min(n_local, n_valid)
+
+
 def backend_for(local_world, cuda_devices):
     """``nccl`` when each of the node's ``local_world`` ranks has a card of its
     own, else ``gloo``."""

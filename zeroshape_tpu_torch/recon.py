@@ -5,7 +5,9 @@
 decode through the fused decoder kernel -> 10k area-uniform surface points
 in world coordinates. ``reconstruct_batch`` does the same for a batch, in
 either decode posture of the evaluation: coarse-to-fine, or the dense grid
-(also through the kernel) with the dense sampler. A decoder that the
+(also through the kernel) with the dense sampler. ``reconstruct_with_attn``
+decodes the dense grid through the plain decoder, which also gives the
+z-averaged attention maps of the visual dumps. A decoder that the
 kernel is not built for (a narrower one, as in small training runs) takes
 the plain decode instead, as the JAX engine's XLA decoder does.
 
@@ -25,6 +27,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -36,6 +39,7 @@ from zeroshape_tpu_torch.metrics.eval3d import (
     get_dense_3D_grid,
     occupancy_grid,
     occupancy_grid_hierarchical,
+    occupancy_grid_with_attn,
     resolve_hier_capacity,
 )
 from zeroshape_tpu_torch.models import resolve_compute_dtype
@@ -264,3 +268,46 @@ def reconstruct(
     )
     result = (world[0], out["depth_pred"], out["intr_pred"], n_active)
     return result + (level,) if return_level else result
+
+
+MODEL_KEYS = ("rgb_input_map", "mask_input_map", "depth_input_map", "intr", "pose_gt", "gt_sample_points",
+              "gt_sample_sdf")
+# x-slices of the dense grid a decode of the attention pass: 8 x 129^2 points
+# hold ~2.5 GiB at full width in bf16 (chip_smoke.py phase 24)
+ATTN_SLICES = 8
+
+
+@torch.inference_mode()
+def reconstruct_with_attn(model, batch, generator=None, vox_res=VOX_RES, num_points=NUM_POINTS, rng=RANGE):
+    """The dense reconstruction that also returns z-averaged attention maps
+    (``Runner._recon_attn_fn``, ``shape_engine.py:373-418``): the graph's
+    forward (with its supervision outputs where ``batch`` has the SDF
+    samples), the latent trunk, the dense ``(vox_res + 1)^3`` decode through
+    the plain ``Implicit.decode`` in the compute dtype, :data:`ATTN_SLICES`
+    x-slices of ``(vox_res + 1)^2`` points a call
+    (:func:`eval3d.occupancy_grid_with_attn`; the JAX engine decodes one a
+    call: the result is the same), the dense sampler.
+
+    ``batch`` holds NHWC ``rgb_input_map``, ``mask_input_map`` and any other
+    model keys (numpy or tensors). ``generator`` is one generator or one a
+    sample. Returns ``(out, level [B, S, S, S], world [B, num_points, 3],
+    attn_xy [B, S, S, L])``.
+    """
+    graph, dev = model.graph, model.device
+    inputs = {k: torch.as_tensor(np.asarray(batch[k]) if not isinstance(batch[k], torch.Tensor) else batch[k],
+                                 dtype=torch.float32, device=dev) for k in MODEL_KEYS if k in batch}
+    B = inputs["rgb_input_map"].shape[0]
+    out = graph(inputs, train=False)
+    caches = graph.impl_network.encode(out["latent_depth"])
+
+    def decode_fn(pts):
+        logits, attn = graph.impl_network.decode(caches, pts)
+        return model.sharpen * logits, attn
+
+    S = vox_res + 1
+    occ, attn_xy = occupancy_grid_with_attn(decode_fn, get_dense_3D_grid(vox_res, rng, device=dev), B, vox_res,
+                                            ATTN_SLICES)
+    level = occ.reshape(B, S, S, S)
+    gens = generator if isinstance(generator, (list, tuple)) else [generator] * B
+    pts = torch.stack([sample_surface_points(level[b], gens[b], num_points) for b in range(B)])
+    return out, level, pts / S * (rng[1] - rng[0]) + rng[0], attn_xy

@@ -119,13 +119,24 @@ def stage_pretrained(graph, opt, kind="shape"):
 
 def load_weights(graph, path):
     """``--load``: the weights of the reference ``.ckpt`` at ``path`` over
-    ``graph`` (``RunnerBase.load_weights``, ``engine_base.py:195-211``): every
-    tensor of the file that the graph has, a shape mismatch raising; a
-    warning for the graph's keys the file lacks. No optimizer state."""
-    sd, _, layout = load_reference_ckpt(path)
+    ``graph`` (``RunnerBase.load_weights``, ``engine_base.py:195-211``); see
+    :func:`apply_weights`. Returns the file's meta (``load_reference_ckpt``)."""
+    return apply_weights(graph, load_reference_ckpt(path), path=path)
+
+
+def apply_weights(graph, ckpt, strict=False, path="the checkpoint"):
+    """Copy ``ckpt`` (:func:`load_reference_ckpt`'s result) into ``graph``:
+    every tensor of the file that the graph has, a shape mismatch raising;
+    for the graph's keys the file lacks, a warning, or with ``strict`` an
+    error that names them (the demo: a checkpoint of the other task). No
+    optimizer state. Returns the file's meta."""
+    sd, meta, layout = ckpt
     want = _expected(graph, ("dpt_depth",) if layout == "omnidata" else None)
     missing = [k for k in want if k not in sd]
+    if missing and strict:
+        raise ValueError(f"{path} lacks {len(missing)} keys of the graph (first: {missing[:5]})")
     if missing:
         print(f"warning: {len(missing)} keys missing from ckpt")
     target = graph.state_dict()
     _copy_in(graph, sd, [k for k in target if k in sd])
+    return meta

@@ -9,8 +9,12 @@ validated by :func:`evaluate`, the best checkpoint chosen on ``l1_err``.
 :func:`evaluate` (``Runner.evaluate``, ``:254-294``) computes the aligned
 depth metrics per sample and averages them over the samples.
 
-Not here: the train-time and evaluation visual dumps (they wait for the
-port's ``vis``).
+The visual dumps are the JAX engine's: a final evaluation writes its first
+batch's input images and depth estimates into ``dump_{dataset}/`` (each
+rank its rows); training writes, on rank 0, ``vis_log/iter_{it}/`` at the
+``freq.save_vis`` cadence (:func:`save_vis`: images, both depths and the
+seen surfaces of ``eval.n_vis`` validation samples) and TensorBoard grids at
+``freq.vis`` (:func:`visualize_train_batch`).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import os
 import numpy as np
 import torch
 
-from zeroshape_tpu_torch import resolve_device
+from zeroshape_tpu_torch import resolve_device, vis
 from zeroshape_tpu_torch.data.base import DataLoader
 from zeroshape_tpu_torch.metrics.depth_metrics import DEFAULT_THRESHOLDS, compute_depth_metrics, metric_keys
 from zeroshape_tpu_torch.models import graph_depth, resolve_compute_dtype
@@ -35,6 +39,18 @@ from zeroshape_tpu_torch.weights import init_like_flax
 MODEL_KEYS = ("rgb_input_map", "mask_input_map", "depth_input_map", "intr")
 
 
+def dump_eval_batch(opt, output_path, batch, depth_pred, n):
+    """The first ``n`` rows' input images and depth estimates into
+    ``dump_{dataset}/`` (``_dump_eval_batch``, ``depth_engine.py:296-319``)."""
+    if n <= 0:
+        return
+    folder = f"dump_{opt.data.dataset_test}"
+    idx = np.asarray(batch["idx"])[:n]
+    vis.dump_images(output_path, idx, "image_input", np.asarray(batch["rgb_input_map"])[:n], folder=folder)
+    vis.dump_depths(output_path, idx, "depth_est", depth_pred[:n], np.asarray(batch["mask_input_map"])[:n],
+                    rescale=True, folder=folder)
+
+
 def evaluate(graph, samples, opt, output_path, training=False, device=None):
     """The aligned depth metrics of ``graph`` (a :class:`DepthGraph` on
     ``device``, None -> cuda) on ``samples`` (a dataset or list of dicts with
@@ -46,7 +62,7 @@ def evaluate(graph, samples, opt, output_path, training=False, device=None):
     uneven tail dropped, so the means are over exactly the samples given.
     Final metrics (``training=False``) write ``best_val.txt`` into
     ``output_path`` in the JAX engine's format (``depth_engine.py:290-293``;
-    rank 0).
+    rank 0) and the first batch's dumps (:func:`dump_eval_batch`).
 
     Returns ``{key: mean}`` over :func:`metric_keys`.
     """
@@ -75,6 +91,8 @@ def evaluate(graph, samples, opt, output_path, training=False, device=None):
                 for k in keys:
                     sums[k] += float(got[k][:B0].sum())
                 count += B0
+                if not training and it == 0:
+                    dump_eval_batch(opt, output_path, batch, out["depth_pred"], dist.local_valid_rows(B0, len(mask)))
                 if it % opt.freq.print_eval == 0:
                     log_print(f"Eval Iter {it}/{len(loader)} @ {count} samples")
     finally:
@@ -88,6 +106,49 @@ def evaluate(graph, samples, opt, output_path, training=False, device=None):
             for k in keys:
                 f.write(f"{k}: {means[k]:.6f}\n")
     return means
+
+
+def _forward(graph, batch, device):
+    """The graph's eval-mode outputs for a host batch; the graph's mode is kept."""
+    was_training = graph.training
+    graph.eval()
+    try:
+        with torch.inference_mode():
+            return graph(to_device(batch, device, MODEL_KEYS), train=False)
+    finally:
+        graph.train(was_training)
+
+
+def save_vis(graph, viz, opt, output_path, device, it):
+    """``vis_log/iter_{it}/`` (``vis_train_iter``, ``depth_engine.py:209-245``;
+    rank 0): each ``viz`` sample's image, mask, estimated and GT depth and,
+    where the graph gave them, the seen surfaces (red prediction, green GT)."""
+    if not dist.is_main():
+        return
+    folder = os.path.join("vis_log", f"iter_{it}")
+    for sample in viz:
+        out = _forward(graph, sample, device)
+        idx = np.asarray(sample["idx"])[:1]
+        mask = np.asarray(sample["mask_input_map"])[:1]
+        vis.dump_images(output_path, idx, "image_input", np.asarray(sample["rgb_input_map"])[:1], folder=folder)
+        vis.dump_images(output_path, idx, "mask_input", mask, folder=folder)
+        vis.dump_depths(output_path, idx, "depth_est", out["depth_pred"][:1], mask, rescale=True, folder=folder)
+        vis.dump_depths(output_path, idx, "depth_input", np.asarray(sample["depth_input_map"])[:1], mask,
+                        rescale=True, folder=folder)
+        if "seen_points_pred" in out and "seen_points_gt" in out:
+            vis.dump_pointclouds_compare(output_path, idx, "seen_surface", out["seen_points_pred"][:1],
+                                         out["seen_points_gt"][:1], folder=folder)
+
+
+def visualize_train_batch(graph, batch, opt, tb, step, device):
+    """TensorBoard grids of a host training batch at ``freq.vis``
+    (``depth_engine.py:183-207``): images, masks, the estimated and the GT depth."""
+    out = _forward(graph, batch, device)
+    ni = tuple((opt.get("tb") or {}).get("num_images") or (4, 8))
+    vis.tb_image(tb, step, "train", "image_input_map", batch["rgb_input_map"], num_images=ni)
+    vis.tb_image(tb, step, "train", "mask_input_map", batch["mask_input_map"], num_images=ni)
+    vis.tb_image(tb, step, "train", "depth_est_map", out["depth_pred"], num_images=ni)
+    vis.tb_image(tb, step, "train", "depth_input_map", batch["depth_input_map"], num_images=ni)
 
 
 def train(opt, data, output_path, device=None):
@@ -133,6 +194,9 @@ def train(opt, data, output_path, device=None):
         means = evaluate(graph, val_data, opt, output_path, training=True, device=dev)
         return means["l1_err"], {f"eval/{k}": v for k, v in means.items()}
 
+    viz = engine_base.viz_samples(val_data, opt.eval.get("n_vis"))
     return engine_base.train_loop(opt, loader, output_path, graph, optimizer,
                                   lambda batch: to_device(batch, dev, MODEL_KEYS), step, run_validation, "l1_err",
-                                  start)
+                                  start, visualize=lambda batch, it, tb: visualize_train_batch(graph, batch, opt, tb,
+                                                                                               it, dev),
+                                  save_vis=lambda it: save_vis(graph, viz, opt, output_path, dev, it))

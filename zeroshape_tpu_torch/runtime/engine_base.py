@@ -24,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from zeroshape_tpu_torch.data.base import default_collate
 from zeroshape_tpu_torch.parallel import dist
 from zeroshape_tpu_torch.runtime import checkpoint
 from zeroshape_tpu_torch.runtime.logging import log_print
@@ -47,6 +48,15 @@ def load_dataset(opt, eval_split="test", load_train=True):
     log_print("loading test data...")
     test = importlib.import_module(DATASETS[opt.data.dataset_test]).Dataset(opt, split=eval_split)
     return train, test
+
+
+def viz_samples(data, n_vis):
+    """The samples the training-time dumps draw: ``n_vis`` of ``data`` at a
+    stride of ``len // n_vis``, each a batch of one (``_collect_viz_data``,
+    ``engine_base.py:75-86``); none when ``n_vis`` is 0 or unset."""
+    n = len(data) if n_vis else 0
+    return [default_collate([data[i]]) for i in range(0, n, max(n // n_vis, 1))][:n_vis] if n else []
+
 
 
 class LossGate:
@@ -205,7 +215,7 @@ def start_run(opt, output_path, graph, optimizer):
 
 
 def train_loop(opt, loader, output_path, graph, optimizer, batch_fn, step_fn, validate_fn, metric, start,
-               train_scalars=None):
+               train_scalars=None, visualize=None, save_vis=None):
     """The epochs of a run (``Runner.train`` / ``train_epoch`` /
     ``train_iteration`` of both JAX engines).
 
@@ -216,7 +226,9 @@ def train_loop(opt, loader, output_path, graph, optimizer, batch_fn, step_fn, va
     takes one step and returns its metrics (``loss_all`` and more, device
     scalars), ``validate_fn(ep)`` validates and returns ``(value, scalars)``,
     lower values better, and ``train_scalars(batch, it)``, where given, adds
-    scalars of the host batch at the scalar cadence. The cadences are
+    scalars of the host batch at the scalar cadence; ``visualize(batch, it,
+    tb)`` draws TensorBoard grids at ``freq.vis`` where a writer takes images, and
+    ``save_vis(it)`` dumps at ``freq.save_vis``. The cadences are
     ``opt.freq``'s: losses, averaged over the ranks, reach the host and pass
     the finite gate every ``print`` / ``scalar`` / ``ckpt_latest`` steps (and
     at each epoch's end); ``latest.ckpt`` every ``ckpt_latest`` steps; the
@@ -224,8 +236,8 @@ def train_loop(opt, loader, output_path, graph, optimizer, batch_fn, step_fn, va
     where ``opt.tb`` is set and TensorBoard is installed, to event files;
     validation before the first step and every ``eval`` epochs, the best
     ``metric`` kept as ``best.ckpt``; ``checkpoint/ep{N}.ckpt`` at the end.
-    ``opt.debug`` skips the first validation, the scalars and
-    ``latest.ckpt``; with ``opt.profile`` too it runs
+    ``opt.debug`` skips the first validation, the scalars, the visual dumps
+    and ``latest.ckpt``; with ``opt.profile`` too it runs
     :class:`ProfilerSchedule`. ``start`` is :func:`start_run`'s.
 
     Returns a dict: ``graph`` and ``optimizer``, ``losses`` (every step's
@@ -283,6 +295,13 @@ def train_loop(opt, loader, output_path, graph, optimizer, batch_fn, step_fn, va
                     timing = "" if s_it is None else f"  s_it {s_it:.4f}"
                     log_print(f"Train Iter {it}/{n_batches * opt.max_epoch}: lr {optimizer.lr():.6f}  "
                               f"loss {losses[-1]:.4f}{timing}")
+                if not debug:
+                    if visualize is not None and hasattr(tb, "add_image") and freq.get("vis") and it % freq.vis == 0:
+                        visualize(batch, it, tb)
+                    # every freq.save_vis steps, the period stretched 10x per 10k steps (shape_engine.py:561-568)
+                    if save_vis is not None and freq.get("save_vis") and it % (
+                            freq.save_vis * (it // 10000 * 10 + 1)) == 0:
+                        save_vis(it)
                 if boundary:
                     gate.reset_clock()
                 it += 1

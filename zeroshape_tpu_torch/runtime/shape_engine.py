@@ -33,11 +33,12 @@ import time
 import numpy as np
 import torch
 
-from zeroshape_tpu_torch import recon, resolve_device
+from zeroshape_tpu_torch import recon, resolve_device, vis
 from zeroshape_tpu_torch.data.base import DataLoader
 from zeroshape_tpu_torch.metrics import eval3d
 from zeroshape_tpu_torch.models import resolve_compute_dtype
 from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+from zeroshape_tpu_torch.ops.marching_cubes import marching_cubes_mesh
 from zeroshape_tpu_torch.parallel import dist
 from zeroshape_tpu_torch.parallel import train as ptrain
 from zeroshape_tpu_torch.runtime import checkpoint, engine_base
@@ -46,8 +47,7 @@ from zeroshape_tpu_torch.weights import init_like_flax
 
 SAMPLE_SEED = 7  # the surface draws of evaluation (the JAX engine's PRNGKey(7))
 TRAIN_METRIC_SEED = 13  # those of the train-split metrics (its PRNGKey(13))
-MODEL_KEYS = ("rgb_input_map", "mask_input_map", "depth_input_map", "intr", "pose_gt", "gt_sample_points",
-              "gt_sample_sdf")
+MODEL_KEYS = recon.MODEL_KEYS
 
 
 def use_hier_decode(opt, training):
@@ -70,13 +70,14 @@ def brute_force_prune(opt, training):
 
 def score(pred_world, gt_view, thresholds, use_icp=False):
     """Per-sample (acc [B], comp [B], f-score [B, n_thr]) of normalised clouds,
-    the prediction first aligned by ICP if asked (``shape_engine.py:334-341``)."""
+    the prediction first aligned by ICP if asked (``shape_engine.py:334-341``),
+    and the two clouds as scored (``pred_n``, ``gt_n``)."""
     pred_n = eval3d.normalize_pc(pred_world)
     gt_n = eval3d.normalize_pc(gt_view)
     if use_icp:
         pred_n = eval3d.icp(pred_n, gt_n)
     acc_d, comp_d = eval3d.chamfer_eval(pred_n, gt_n)
-    return acc_d.mean(dim=1), comp_d.mean(dim=1), eval3d.compute_fscore(acc_d, comp_d, thresholds)
+    return acc_d.mean(dim=1), comp_d.mean(dim=1), eval3d.compute_fscore(acc_d, comp_d, thresholds), pred_n, gt_n
 
 
 def check_hier_overflow(n_active, opt, training, warned):
@@ -106,14 +107,16 @@ def sample_generators(idx, device, seed=SAMPLE_SEED):
     return [torch.Generator(device=device).manual_seed(seed * 2**32 + int(i)) for i in np.asarray(idx)]
 
 
-def score_batch(model, batch, opt, training, seed=SAMPLE_SEED):
+def score_batch(model, batch, opt, training, seed=SAMPLE_SEED, keep=False):
     """Reconstruct and score one host batch (``rgb_input_map``,
     ``mask_input_map``, ``pose_gt``, ``idx``, ``dpc = {"points"}``) in the
     posture of ``training``. Returns numpy ``acc [B]``, ``comp [B]``,
-    ``f_score [B, n_thr]`` and the active cells ``[B]`` (None for the dense decode)."""
+    ``f_score [B, n_thr]`` and the active cells ``[B]`` (None for the dense
+    decode); with ``keep``, also what :func:`dump_results` draws (a dict of
+    the graph's outputs, the level grids and the scored clouds, on the device)."""
     ev, dev = opt.eval, model.device
     thresholds = tuple(ev.f_thresholds)
-    _, _, pred_world, n_active = recon.reconstruct_batch(
+    out, level, pred_world, n_active = recon.reconstruct_batch(
         model, batch, sample_generators(batch["idx"], dev, seed), ev.vox_res, ev.get("hier_capacity"),
         ev.num_points, tuple(ev.range), use_hier_decode(opt, training),
     )
@@ -127,11 +130,12 @@ def score_batch(model, batch, opt, training, seed=SAMPLE_SEED):
             res = eval3d.brute_force_batch(pred_world, gt_view, thresholds=thresholds,
                                            prune=brute_force_prune(opt, training),
                                            fast_coarse=bool(ev.get("bf_fast_coarse", True)))
-            accs, comps, fs = res["acc"], res["comp"], res["f_score"]
+            accs, comps, fs, pred_n, gt_n = res["acc"], res["comp"], res["f_score"], res["pc_pred"], res["pc_gt"]
         else:
-            accs, comps, fs = score(pred_world, gt_view, thresholds, bool(ev.get("icp")))
+            accs, comps, fs, pred_n, gt_n = score(pred_world, gt_view, thresholds, bool(ev.get("icp")))
     accs, comps, fs = (x.float().cpu().numpy() for x in (accs, comps, fs))
-    return accs, comps, fs, None if n_active is None else n_active.cpu().numpy()
+    got = accs, comps, fs, None if n_active is None else n_active.cpu().numpy()
+    return got + ({"out": out, "level": level, "pred_n": pred_n, "gt_n": gt_n},) if keep else got
 
 
 def full_results_header(thresholds):
@@ -167,6 +171,76 @@ def write_summaries(output_path, opt, label2cat, acc, comp, f, cat, val_metric):
             outfile.write("F-score @ %.2f: %.4f\n" % (t * 100, f_avg[i]))
 
 
+def dump_results(opt, output_path, batch, drawn, n, folder, train=False, device=None):
+    """The first ``n`` rows' dumps into ``output_path/folder``
+    (``Runner.dump_results``, ``shape_engine.py:778-824``): the input image and
+    mask, the mesh (marching cubes of the level grid in world units), its
+    turntable (every row of a final evaluation unless ``eval.dump_mesh_viz``
+    is false; in training only where it is true), the depth estimate and the
+    scored clouds (red prediction, green GT). ``drawn`` is
+    :func:`score_batch`'s fourth result; the turntables render on ``device``.
+    A rank whose rows all pad an uneven tail (``n`` 0) dumps nothing."""
+    if n <= 0:
+        return
+    idx = np.asarray(batch["idx"])[:n]
+    vis.dump_images(output_path, idx, "image_input", np.asarray(batch["rgb_input_map"])[:n], folder=folder)
+    vis.dump_images(output_path, idx, "mask_input", np.asarray(batch["mask_input_map"])[:n], folder=folder)
+    lo, hi = opt.eval.range
+    S = opt.eval.vox_res + 1
+    level = drawn["level"][:n].float().cpu().numpy()
+    meshes = [(v / S * (hi - lo) + lo, f) for v, f in (marching_cubes_mesh(lv) for lv in level)]
+    vis.dump_meshes(output_path, idx, "mesh", meshes, folder=folder)
+    dump_viz = opt.eval.get("dump_mesh_viz")
+    if (dump_viz is None and not train) or dump_viz:
+        vis.dump_meshes_viz(output_path, idx, "mesh_viz", meshes, folder=folder, device=device)
+    if "depth_pred" in drawn["out"]:
+        vis.dump_depths(output_path, idx, "depth_est", drawn["out"]["depth_pred"][:n],
+                        np.asarray(batch["mask_input_map"])[:n], rescale=True, folder=folder)
+    vis.dump_pointclouds_compare(output_path, idx, "pointclouds_comp", drawn["pred_n"][:n], drawn["gt_n"][:n],
+                                 folder=folder)
+
+
+def dump_viz_samples(model, viz, opt, output_path, folder):
+    """The training-time dumps of the ``viz`` samples (batches of one) into
+    ``output_path/folder`` (``_dump_viz_samples``, ``shape_engine.py:887-927``):
+    the dense reconstruction with attention (``recon.reconstruct_with_attn``,
+    the surface drawn from the sample's index), :func:`dump_results`, the
+    attention sweep ``attn.gif`` and, where the graph gave them, the seen
+    surface against the GT surface points."""
+    ev, dev = opt.eval, model.device
+    for sample in viz:
+        generator = torch.Generator(device=dev).manual_seed(int(np.asarray(sample["idx"])[0]))
+        out, level, world, attn_xy = recon.reconstruct_with_attn(model, sample, generator, ev.vox_res, ev.num_points,
+                                                                 tuple(ev.range))
+        with torch.inference_mode():
+            pred_n = eval3d.normalize_pc(world)
+            gt_n = pred_n
+            if "dpc" in sample:
+                gt_n = eval3d.normalize_pc(eval3d.transform_gt_to_view(
+                    torch.as_tensor(np.asarray(sample["dpc"]["points"], np.float32), device=dev),
+                    torch.as_tensor(np.asarray(sample["pose_gt"], np.float32), device=dev),
+                    opt.data.dataset_test == "pix3d"))
+        drawn = {"out": out, "level": level, "pred_n": pred_n, "gt_n": gt_n}
+        dump_results(opt, output_path, sample, drawn, 1, folder, train=True, device=dev)
+        frames = eval3d.attention_frames(attn_xy[0].cpu().numpy(), np.asarray(sample["rgb_input_map"])[0], ev.vox_res,
+                                         opt.H // opt.arch.win_size)
+        idx = np.asarray(sample["idx"])[:1]
+        vis.dump_attentions(output_path, idx, "attn", [frames], folder=folder)
+        if "gt_surf_points" in out and "seen_points" in out:
+            vis.dump_pointclouds_compare(output_path, idx, "seen_surface", out["seen_points"][:1],
+                                         out["gt_surf_points"][:1], folder=folder)
+
+
+def dump_viz(model, viz, opt, output_path, ep):
+    """``vis_{ep}/`` and its gallery ``results_ep{ep}.html`` (``_dump_viz``,
+    ``shape_engine.py:875-885``); rank 0 only."""
+    if not viz or not dist.is_main():
+        return
+    log_print("visualizing and saving results...")
+    dump_viz_samples(model, viz, opt, output_path, f"vis_{ep}")
+    vis.create_gif_html(os.path.join(output_path, f"vis_{ep}"), os.path.join(output_path, f"results_ep{ep}.html"))
+
+
 def evaluate(model, samples, opt, output_path, label2cat, training=False, device=None, seed=SAMPLE_SEED):
     """Score ``model`` (a ``recon.ReconModel``) on ``samples``.
 
@@ -178,14 +252,18 @@ def evaluate(model, samples, opt, output_path, label2cat, training=False, device
     (:func:`score_batch`), the per-sample metrics gathered and the padding
     of an uneven tail dropped. ``training`` picks the validation posture;
     final metrics (``training=False``) also write the result files into
-    ``output_path`` (rank 0). Surface samples are drawn by
+    ``output_path`` (rank 0) and the dumps of :func:`dump_results` into
+    ``output_path/dump_{dataset}/`` (each rank the samples it scored), then,
+    once every rank's are on disk, ``results_test.html`` over every 10th
+    sample (rank 0). Surface samples are drawn by
     :func:`sample_generators` from ``seed``. ``device`` (None -> cuda) must
     be the model's.
 
     Returns a dict: ``val_metric`` (mean CD), per-sample ``acc``, ``comp``,
     ``f_score``, ``idx``, ``category_label`` and ``hier_n_active``
-    (numpy, the dataset's order), and ``s_per_sample``, the host-clock
-    seconds per sample of each batch.
+    (numpy, the dataset's order), ``s_per_sample``, the host-clock
+    seconds per sample of each batch, and ``dump_seconds``, this rank's
+    seconds in :func:`dump_results`.
     """
     dev = resolve_device(device)
     if model.device != dev:
@@ -197,7 +275,7 @@ def evaluate(model, samples, opt, output_path, label2cat, training=False, device
     N = len(samples)
     keys = ("acc", "comp", "f_score", "idx", "category_label", "hier_n_active")
     rows = {k: [] for k in keys}
-    s_per_sample, warned, logger = [], False, MetricLogger()
+    s_per_sample, warned, logger, dump_seconds = [], False, MetricLogger(), 0.0
     results_file = None
     if not training and dist.is_main():
         results_file = open(os.path.join(output_path, f"{opt.data.dataset_test}_full_results.txt"), "w")
@@ -206,7 +284,7 @@ def evaluate(model, samples, opt, output_path, label2cat, training=False, device
         t0 = time.perf_counter()
         for it, batch in enumerate(loader):
             B0 = min(ev.batch_size, N - it * ev.batch_size)  # the valid rows of this global batch
-            accs, comps, fs, n_active = score_batch(model, batch, opt, training, seed)
+            accs, comps, fs, n_active, *drawn = score_batch(model, batch, opt, training, seed, keep=not training)
             got = dist.gather_rows({
                 "acc": accs, "comp": comps, "f_score": fs, "idx": np.asarray(batch["idx"], np.int64),
                 "category_label": np.asarray(batch["category_label"], np.int64),
@@ -228,6 +306,11 @@ def evaluate(model, samples, opt, output_path, label2cat, training=False, device
                     results_file.write(full_results_line(got["idx"][b], got["acc"][b], got["comp"][b],
                                                          got["f_score"][b]))
                 results_file.flush()
+            if not training:
+                t_dump = time.perf_counter()
+                dump_results(opt, output_path, batch, drawn[0], dist.local_valid_rows(B0, len(accs)),
+                             f"dump_{opt.data.dataset_test}", device=dev)
+                dump_seconds += time.perf_counter() - t_dump
     finally:
         if results_file is not None:
             results_file.close()
@@ -235,10 +318,14 @@ def evaluate(model, samples, opt, output_path, label2cat, training=False, device
     assert len(out["acc"]) == N, (len(out["acc"]), N)
     val_metric = (out["acc"].mean() + out["comp"].mean()) / 2
     log_print(f"CD. ACC: {out['acc'].mean():.4f}, COMP: {out['comp'].mean():.4f}")
+    if not training:
+        dist.barrier()  # every rank's dumps are on disk before the gallery reads them
     if not training and dist.is_main():
         write_summaries(output_path, opt, label2cat, out["acc"], out["comp"], out["f_score"],
                         out["category_label"], val_metric)
-    return dict(out, val_metric=float(val_metric), s_per_sample=s_per_sample)
+        vis.create_gif_html(os.path.join(output_path, f"dump_{opt.data.dataset_test}"),
+                            os.path.join(output_path, "results_test.html"), skip_every=10)
+    return dict(out, val_metric=float(val_metric), s_per_sample=s_per_sample, dump_seconds=dump_seconds)
 
 
 def to_device(batch, device, keys=MODEL_KEYS):
@@ -268,16 +355,52 @@ def recon_model(graph, device):
     return recon.ReconModel(graph, None, 1.0, device).repack()
 
 
-def validate(graph, data, opt, output_path, device):
+def validate(graph, data, opt, output_path, device, ep=None, viz=()):
     """In-training validation (``training=True``) of ``graph`` on ``data``
     (a sequence of samples): the graph is switched to eval, its K1 weights
-    packed anew, its logits not sharpened, and switched back to train.
-    Returns :func:`evaluate`'s dict."""
+    packed anew, its logits not sharpened, and switched back to train. With
+    ``ep``, rank 0 then dumps the ``viz`` samples into ``vis_{ep}/``
+    (:func:`dump_viz`). Returns :func:`evaluate`'s dict."""
     try:
-        return evaluate(recon_model(graph, device), data, opt, output_path, getattr(data, "label2cat", None),
-                        training=True, device=device)
+        model = recon_model(graph, device)
+        res = evaluate(model, data, opt, output_path, getattr(data, "label2cat", None), training=True, device=device)
+        if ep is not None:
+            dump_viz(model, viz, opt, output_path, ep)
+        return res
     finally:
         graph.train()
+
+
+def save_vis(graph, viz, opt, output_path, device, it):
+    """``vis_log/iter_{it}/``: the ``viz`` samples' dumps at the
+    ``freq.save_vis`` cadence (``vis_train_iter``, ``shape_engine.py:929-934``);
+    rank 0 only."""
+    if not viz or not dist.is_main():
+        return
+    try:
+        dump_viz_samples(recon_model(graph, device), viz, opt, output_path, os.path.join("vis_log", f"iter_{it}"))
+    finally:
+        graph.train()
+
+
+def visualize_train_batch(graph, batch, opt, tb, step, device):
+    """TensorBoard grids of a host training batch at ``freq.vis``
+    (``visualize_train_batch``, ``shape_engine.py:936-970``): the input images,
+    masks, the depth estimate (the graph in eval mode, without supervision)
+    and the GT depth."""
+    graph.eval()
+    try:
+        with torch.inference_mode():
+            out = graph(to_device(batch, device, ("rgb_input_map", "mask_input_map")), train=False,
+                        with_supervision=False)
+    finally:
+        graph.train()
+    ni = tuple((opt.get("tb") or {}).get("num_images") or (4, 8))
+    vis.tb_image(tb, step, "train", "image_input_map", batch["rgb_input_map"], num_images=ni)
+    vis.tb_image(tb, step, "train", "mask_input_map", batch["mask_input_map"], num_images=ni)
+    vis.tb_image(tb, step, "train", "depth_est_map", out["depth_pred"], num_images=ni)
+    if "depth_input_map" in batch:
+        vis.tb_image(tb, step, "train", "depth_input_map", batch["depth_input_map"], num_images=ni)
 
 
 def train_metrics(graph, batch, opt, device):
@@ -318,7 +441,9 @@ def train(opt, data, output_path, device=None):
     :func:`step_generator` and, at the scalar cadence, the attention
     statistics and :func:`train_metrics`; validation is :func:`validate`,
     which logs ``eval/dist_acc`` and ``eval/dist_cov``, the best CD kept
-    (``shape_engine.py:460-549``).
+    (``shape_engine.py:460-549``), and dumps ``vis_{ep}/`` from the first
+    ``eval.n_vis`` validation samples (:func:`engine_base.viz_samples`);
+    :func:`save_vis` and :func:`visualize_train_batch` run at their cadences.
 
     Returns :func:`engine_base.train_loop`'s dict.
     """
@@ -341,12 +466,16 @@ def train(opt, data, output_path, device=None):
                                        with_stats=with_stats)
         return metrics
 
+    viz = engine_base.viz_samples(val_data, opt.eval.get("n_vis"))
+
     def run_validation(ep):
-        res = validate(graph, val_data, opt, output_path, dev)
+        res = validate(graph, val_data, opt, output_path, dev, ep, viz)
         acc, comp = float(res["acc"].mean()), float(res["comp"].mean())
         return res["val_metric"], {"eval/dist_acc": acc, "eval/dist_cov": comp}
 
     return engine_base.train_loop(
         opt, loader, output_path, graph, optimizer, lambda batch: to_device(batch, dev), step, run_validation, "CD",
         start, train_scalars=lambda batch, it: train_metrics(graph, batch, opt, dev),
+        visualize=lambda batch, it, tb: visualize_train_batch(graph, batch, opt, tb, it, dev),
+        save_vis=lambda it: save_vis(graph, viz, opt, output_path, dev, it),
     )
