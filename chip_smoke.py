@@ -2,9 +2,9 @@
 against its plain version, run the full-size main path and export a mesh,
 run the scoring and evaluation path at full size, then shape training, the
 accuracy gate, depth pretraining and its staging into shape training, the
-CLIs on datasets written to disk, in one process and in two, and the visual
+CLIs on datasets written to disk, in one process and in two, the visual
 layer: the turntable renderer, the dense decode with attention, the demo
-CLI's three runs and the engines' dumps.
+CLI's three runs and the engines' dumps, and the non-default encoders.
 
     python3 chip_smoke.py
 
@@ -144,7 +144,24 @@ Phases (one line or more each, any failure exits non-zero):
      dump each sample once;
  27. the training-time dumps of phase 19: ``vis_0/`` and ``vis_1/`` with two
      attention GIFs each and their galleries, ``vis_log/iter_0`` and
-     ``vis_log/iter_2``.
+     ``vis_log/iter_2``;
+ 28. the non-default encoders at full width, ``config.encoders_opt()`` (both
+     12-block transformer encoders, dsp 2, a semantic decoder at K1's
+     width), after a printed prediction: (a) ``encode_image`` on the card
+     against the CPU in fp32, TF32 off, each latent stream within 1e-4 of
+     its norm, for it and for the RGB-resnet variant (eval BatchNorm); (b)
+     ``recon.synthetic_setup(opt=encoders_opt())``: one reconstruction
+     launches K1 2 and decodes plainly 0 times, a surface exists, the median
+     of 5 beside phase 4's; (c) with ``posenc_3D`` 4 and ``posenc_perlayer``
+     K1 is not built for the decoder: K1 0, plain 2, a surface after
+     calibration; (d) ``shape_engine.evaluate`` of (b)'s model in the
+     validation posture on phase 9's samples, launches as the code implies;
+     (e) ``shape_gen`` with the variant's encoders on phase 11's data, 1
+     epoch of 3 steps validated before and after: s/step, peak memory,
+     finite losses, launches, the device kernels of a step by
+     ``torch.profiler``; a tiny fp32 step with both transformer encoders on
+     the card and the CPU with every stochastic-depth mask given, held to
+     ``step_disagreements``.
 Then one JSON line of kernel numbers, the nvidia-smi line again, and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -343,7 +360,8 @@ def check_k1(dev):
 
 
 def main_path(dev):
-    """The full-size 128^3 reconstruction through ``recon``; returns (model, launches, level, batch)."""
+    """The full-size 128^3 reconstruction through ``recon``; returns (model,
+    launches, level, batch, median seconds)."""
     from zeroshape_tpu_torch import recon
     from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode
 
@@ -373,7 +391,7 @@ def main_path(dev):
     times = recon.time_reconstructions(model, batch, gen, reps=5)
     print(f"main path: median {np.median(times):.4f} s/reconstruction over {len(times)} reps "
           f"(min {min(times):.4f}, max {max(times):.4f})")
-    return model, launches, level[0].float().cpu().numpy(), batch
+    return model, launches, level[0].float().cpu().numpy(), batch, float(np.median(times))
 
 
 def sampler_determinism(level, dev):
@@ -601,9 +619,10 @@ def parse_results(tmp, res, thresholds):
         fail(f"quantitative file {quant}")
 
 
-def evaluate_posture(model, samples, training):
+def evaluate_posture(model, samples, training, what=""):
     """One evaluation of ``samples`` through ``shape_engine.evaluate``; returns
-    its launches and its seconds per sample."""
+    its launches and its seconds per sample. ``what`` names the model in the
+    printed line."""
     from zeroshape_tpu_torch import recon
     from zeroshape_tpu_torch.config import eval_opt, full_opt
     from zeroshape_tpu_torch.runtime import shape_engine
@@ -633,7 +652,7 @@ def evaluate_posture(model, samples, training):
     k = len(samples)
     want = {"K1": k, "K2": 288 * k, "K3": 0} if not training else {"K1": 2 * k, "K2": 6 * k, "K3": 72 * k}
     want["plain"] = 0  # the shipped decoder decodes through K1 only
-    print(f"evaluation, {name} posture ({'coarse-to-fine decode, pruned' if training else 'dense decode, exhaustive'} "
+    print(f"{what}evaluation, {name} posture ({'coarse-to-fine decode, pruned' if training else 'dense decode, exhaustive'} "
           f"search), {k} samples at batch 2: CD {res['val_metric']:.6f}, launches {n} (expected {want}); "
           f"{seconds / k:.3f} s/sample over the run, per batch {[round(x, 4) for x in res['s_per_sample']]}"
           + ("" if training else f"; the dumps {res['dump_seconds'] / k:.4f} s/sample, "
@@ -836,6 +855,18 @@ def step_batch(rng, H, B, n_pts):
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in batch.items()}
 
 
+def masks_to(masks, where):
+    """Stochastic-depth masks (a list, a dict by module, tuples of a block's
+    two) moved to ``where``; None stays None."""
+    if masks is None:
+        return None
+    if isinstance(masks, dict):
+        return {k: masks_to(v, where) for k, v in masks.items()}
+    if isinstance(masks, (list, tuple)):
+        return type(masks)(masks_to(m, where) for m in masks)
+    return masks.to(where)
+
+
 def step_on(where, opt, graph, batch, masks, threads=None, **step_kw):
     """One :func:`tiny_step_case` (or :func:`depth_step_case`, without
     ``masks``, with its ``loss_fn``) step on ``where`` (on the CPU with
@@ -850,7 +881,7 @@ def step_on(where, opt, graph, batch, masks, threads=None, **step_kw):
         optimizer = ptrain.make_optimizer(g, opt.optim)
         grads = ptrain.capture_grads(g, optimizer)
         metrics, _ = ptrain.train_step(g, optimizer, {k: v.to(where) for k, v in batch.items()}, opt,
-                                       dp_masks=masks and [m.to(where) for m in masks], **step_kw)
+                                       dp_masks=masks_to(masks, where), **step_kw)
     finally:
         torch.set_num_threads(n)
     return ({k: v.cpu() for k, v in g.state_dict().items()}, {k: v.cpu() for k, v in grads.items()},
@@ -1724,7 +1755,7 @@ def attention_pass(dev, model, batch):
     peak = (torch.cuda.max_memory_allocated() - before) / 2**30
     S = recon.VOX_RES + 1
     with torch.inference_mode():
-        caches = model.graph.impl_network.encode(out["latent_depth"])
+        caches = model.graph.encode_latents(out)
         k1 = recon.decode_points(model, caches, eval3d.get_dense_3D_grid(recon.VOX_RES, device=dev)[None])[0]
     # the pass's own occupancy against K1's of the same caches, sharpened alike. The pass decodes under bf16
     # autocast (the JAX path's arithmetic): every activation is rounded to bf16 where K1 keeps fp32
@@ -1851,6 +1882,191 @@ def demo_cli(dev):
         shutil.rmtree(tmp)
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the non-default encoders
+# ---------------------------------------------------------------------------
+
+def encode_card_cpu(dev, graph, what, batch):
+    """``encode_image`` of ``graph`` (fp32, eval) on the card and on the CPU
+    with TF32 off; each latent stream within 1e-4 of the CPU's norm."""
+    from zeroshape_tpu_torch.recon import _inputs
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            cpu = graph.cpu().eval().encode_image(_inputs(batch, "cpu"))
+            card = graph.to(dev).encode_image(_inputs(batch, dev))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    rel = {k: float((card[k].cpu() - cpu[k]).norm() / cpu[k].norm()) for k in ("latent_depth", "latent_semantic")}
+    print(f"encoders {what}: encode_image card against CPU (fp32, TF32 off): |d| / |CPU| latent_depth "
+          f"{rel['latent_depth']:.3e} {tuple(cpu['latent_depth'].shape)}, latent_semantic {rel['latent_semantic']:.3e} "
+          f"{tuple(cpu['latent_semantic'].shape)}")
+    if not all(np.isfinite(list(rel.values()))) or max(rel.values()) > 1e-4:
+        fail(f"encode_image of the {what} on the card disagrees with the CPU: {rel}")
+
+
+def variant_step_case(seed=4):
+    """:func:`tiny_step_case` with both transformer encoders (2 blocks each,
+    dsp 2): the fp32 step card and CPU take, with every stochastic-depth mask
+    given (the decoder's and each encoder block's two), each keeping some
+    samples and dropping others."""
+    from zeroshape_tpu_torch import config
+    from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+
+    H, B, n_pts = 64, 4, 64
+    opt = config.override_options(config.tiny_opt(H), {"arch": {
+        "dtype": "float32", "depth": {"encoder": "transformer", "n_blocks": 2, "dsp": 2},
+        "rgb": {"encoder": "transformer", "n_blocks": 2}}})
+    opt.loss_weight = {"shape": 1, "depth": 1, "intr": 10}
+    opt.optim.lr = opt.optim.lr_ft = 1e-2
+    graph = ShapeGraph.from_opt(opt)
+    rng = np.random.default_rng(seed)
+    numpy_weights(graph, rng)
+    batch = step_batch(rng, H, B, n_pts)
+    keep = 1 / 0.9
+
+    def mask(i):
+        return torch.tensor([keep * ((i + j) % 3 != 0) for j in range(B)], dtype=torch.float32)
+
+    masks = {"impl_network": [mask(0), mask(1)],
+             "coord_encoder": [(mask(2), mask(3)), (mask(4), mask(5))],
+             "rgb_encoder": [(mask(6), mask(7)), (mask(8), mask(9))]}
+    return opt, graph, batch, masks
+
+
+def kernels_in_a_step(graph, optimizer, batch, opt, dev):
+    """Device kernels of one train step, counted by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zeroshape_tpu_torch.parallel import train as ptrain
+    from zeroshape_tpu_torch.runtime import shape_engine
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ptrain.train_step(graph, optimizer, batch, opt, shape_engine.step_generator(0, 99, dev))
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.count for e in prof.key_averages() if e.device_type == cuda and not e.is_user_annotation)
+
+
+def encoders_phase(dev, main_median, samples, data):
+    """Phase 28: ``config.encoders_opt()`` at full width through the port's
+    entry points. Returns its launches (one reconstruction, the evaluation,
+    the training run's validations)."""
+    from zeroshape_tpu_torch import config, recon
+    from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+    from zeroshape_tpu_torch.parallel import train as ptrain
+    from zeroshape_tpu_torch.runtime import shape_engine
+    from zeroshape_tpu_torch.weights import init_like_flax
+
+    print("encoders prediction (from the numbers PERF.md records): the variant's reconstruction 0.04-0.075 s "
+          "(the main path's 0.036-0.065 s plus ~370 more launches in encode_image, which stays host-bound at "
+          "~2,000); a bf16 train step at batch 8 0.15-0.30 s with 6,500-8,000 device kernels (the two 12-block "
+          "ViTs add ~550 launches forward where the coordinate ResNet-50 leaves ~300)")
+    t0 = time.perf_counter()
+    opt = config.encoders_opt()
+    model, batch, gen, (shift, gain, n_cal) = recon.synthetic_setup(dev, opt=opt)
+    impl = model.graph.impl_network
+    print(f"encoders (b): encoders_opt() built, calibrated ({n_cal} active cells) and warmed up in "
+          f"{time.perf_counter() - t0:.1f} s; K1 packed {model.packed is not None}, decoder semantic {impl.semantic}, "
+          f"latent projection {impl.latent_proj.in_features} -> {impl.latent_proj.out_features}")
+
+    # (a) encode_image, card against CPU, fp32: this model's weights, and the RGB-resnet variant's
+    g32 = ShapeGraph.from_opt(opt, dtype=torch.float32)
+    g32.load_state_dict(model.graph.state_dict())
+    encode_card_cpu(dev, g32, "encoders_opt()", batch)
+    del g32
+    res_opt = config.override_options(config.full_opt(), {"arch": {"rgb": {"encoder": "resnet", "n_blocks": 12}}})
+    encode_card_cpu(dev, init_like_flax(ShapeGraph.from_opt(res_opt), seed=1), "RGB-resnet variant", batch)
+    torch.cuda.empty_cache()
+
+    # (b) one reconstruction through K1, then the median of 5
+    reset_counts()
+    world, _, _, n_active = recon.reconstruct(model, batch, gen)
+    torch.cuda.synchronize()
+    rec = launch_counts()
+    if (rec["K1"], rec["plain"]) != (2, 0):
+        fail(f"the encoders' reconstruction launched {rec}, expected K1 2 and no plain decode")
+    if int(n_active.max()) == 0 or not torch.isfinite(world).all() or tuple(world.shape) != (recon.NUM_POINTS, 3):
+        fail(f"the encoders' reconstruction has no surface (n_active {n_active.tolist()}) or bad points")
+    times = recon.time_reconstructions(model, batch, gen, reps=5)
+    print(f"encoders (b): reconstruction launches {rec}; n_active {int(n_active.max())}; median "
+          f"{np.median(times):.4f} s/reconstruction over 5 reps (min {min(times):.4f}, max {max(times):.4f}) "
+          f"beside the main path's {main_median:.4f} s in this call")
+
+    # (c) the posenc variant: K1 is not built for it (as the JAX gate says): plain decodes
+    pos_opt = config.override_options(config.encoders_opt(), {"arch": {"impl": {"posenc_3D": 4,
+                                                                                   "posenc_perlayer": True}}})
+    pos, pos_batch, pos_gen, (_, _, pos_cal) = recon.synthetic_setup(dev, opt=pos_opt)
+    reset_counts()
+    world, _, _, n_active = recon.reconstruct(pos, pos_batch, pos_gen)
+    torch.cuda.synchronize()
+    pn = launch_counts()
+    pos_times = recon.time_reconstructions(pos, pos_batch, pos_gen, reps=3)
+    print(f"encoders (c): posenc_3D 4 + posenc_perlayer: K1 packed {pos.packed is not None}, reconstruction "
+          f"launches {pn}, n_active {int(n_active.max())} after calibration ({pos_cal}); median "
+          f"{np.median(pos_times):.4f} s/reconstruction over 3 reps")
+    if pos.packed is not None or (pn["K1"], pn["plain"]) != (0, 2):
+        fail(f"the posenc variant decoded with {pn}, expected K1 0 and plain 2")
+    if int(n_active.max()) == 0 or not torch.isfinite(world).all():
+        fail("the posenc variant's reconstruction has no surface")
+    del pos
+    torch.cuda.empty_cache()
+
+    # (d) the validation posture of shape_engine.evaluate on phase 9's samples
+    val, _ = evaluate_posture(model, samples, training=True, what="encoders_opt() ")
+    del model
+    torch.cuda.empty_cache()
+
+    # (e) shape_gen with the variant on phase 11's data: 1 epoch of 3 steps, validated before and after
+    train_opt = config.override_options(config.shape_gen_opt(), {
+        "arch": {"depth": dict(opt.arch.depth), "rgb": dict(opt.arch.rgb)}, "max_epoch": 1, "tb": None, "eval": {"n_vis": 0},
+        "freq": {"print": 1, "scalar": 3, "ckpt_latest": 1000, "eval": 1}})
+    out = tempfile.mkdtemp()
+    try:
+        with instrumented(shape_engine, "validate") as (steps, vals):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = shape_engine.train(train_opt, data, out, device=dev)
+            seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s_step = [s for s, _ in steps]
+    in_steps, in_val = summed([n for _, n in steps]), summed(vals)
+    step_batch_ = shape_engine.to_device(data.batch(np.arange(8), 0, 0, train_opt.training.n_sdf_points), dev)
+    n_kernels = kernels_in_a_step(res["graph"], res["optimizer"], step_batch_, train_opt, dev)
+    print(f"encoders (e): shape_gen with encoders_opt()'s encoders, batch 8, bf16: {len(steps)} steps, median "
+          f"{np.median(s_step[1:]):.4f} s/step over steps 2-{len(s_step)} (per step {[round(x, 4) for x in s_step]}); "
+          f"peak memory {peak:.2f} GiB; the run {seconds:.1f} s with {len(vals)} validations; losses "
+          f"{[round(x, 5) for x in res['losses']]}; validation CD {res['val']}; launches in the steps {in_steps}, "
+          f"in validation {in_val}; device kernels in a step (torch.profiler) {n_kernels} (the shipped graph: "
+          f"6,955 by profile_train, PERF.md)")
+    if len(steps) != 3 or not np.isfinite(res["losses"]).all() or not all(np.isfinite(cd) for _, cd in res["val"]):
+        fail(f"the encoders' training took {len(steps)} steps, losses {res['losses']}, validation {res['val']}")
+    if any(in_steps.values()) or in_val["K1"] == 0 or in_val["K2"] == 0 or in_val["plain"]:
+        fail(f"the encoders' training launched {in_steps} in its steps (want none), {in_val} in validation")
+    del res, step_batch_
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    step_opt, graph, sbatch, masks = variant_step_case()
+    cpu = step_on("cpu", step_opt, graph, sbatch, masks)
+    cpu_1 = step_on("cpu", step_opt, graph, sbatch, masks, threads=1)
+    card = step_on(dev, step_opt, graph, sbatch, masks)
+    # 492 parameters, of which 6 never take a gradient (the DPT ViT's last
+    # norm, refinenet4's first unit)
+    bad, summary = step_disagreements(step_opt, graph, cpu, card, cpu_1, min_live=486)
+    mods = ", ".join(f"{m} {r:.2e} (CPU runs {x:.2e})" for m, (r, x, _) in summary.get("modules", {}).items())
+    print(f"encoders (e): fp32 step at tiny width with both transformer encoders, card against CPU, the same "
+          f"stochastic-depth masks: loss {card[2]['loss_all']:.6f} vs {cpu[2]['loss_all']:.6f}; gradient |d| / norm "
+          f"by module: {mods}; update max|d| {summary.get('update', float('nan')):.3e}")
+    if bad:
+        fail(f"the encoders' training step on the card disagrees with the CPU: {bad[:6]} ({len(bad)} in all)")
+    return summed([rec, val, in_val])
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1871,7 +2087,7 @@ def main():
 
     build_kernels()
     k1 = check_k1(dev)
-    model, main_launches, level, batch = main_path(dev)
+    model, main_launches, level, batch, main_median = main_path(dev)
 
     verts, faces = marching_cubes_mesh(level)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1945,14 +2161,18 @@ def main():
         shutil.rmtree(root)
         shutil.rmtree(out)
     demo_k1 = demo_cli(dev)
+    del model
+    torch.cuda.empty_cache()
+    enc_launches = encoders_phase(dev, main_median, samples, data)
 
     # launches: the sum over the path runs (main path, final and validation
     # posture, the validations of the training run, the gate and the staged
     # run, the train CLI's validations and train-split metrics, the evaluate
-    # CLI on the tree and on the three layouts, the demo's fast path), each
+    # CLI on the tree and on the three layouts, the demo's fast path, the
+    # encoders' reconstruction, evaluation and training validations), each
     # counted from 0
     launches = {k: (main_launches + demo_k1) * (k == "K1") + sum(
-        n[k] for n in (final, val, train_val, gate_val, staged_val, cli_val, tree_eval, layout_eval))
+        n[k] for n in (final, val, train_val, gate_val, staged_val, cli_val, tree_eval, layout_eval, enc_launches))
         for k in ("K1", "K2", "K3")}
     k1["launches"] = launches["K1"]
     kernels = [k1]

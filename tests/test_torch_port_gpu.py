@@ -11,6 +11,7 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 """
 
+import copy
 import os
 import types
 
@@ -207,6 +208,49 @@ def test_shipped_decoder_decodes_through_the_kernel_only():
     k1, _, plain = (a - b for a, b in zip(_counts(), before))
     assert (k1, plain) == (2, 0)
     np.testing.assert_allclose(got[1].cpu().numpy(), want.cpu().numpy(), rtol=8e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_semantic_variant_reconstructs_through_the_kernel():
+    """A small semantic graph (both transformer encoders with 2 blocks at
+    64^2, the decoder at K1's width: L = 17 latent keys) packs, reconstructs
+    with two K1 launches and no plain decode, and K1's logits of its caches
+    agree with the plain fp32 decode (the decoder's weights bf16-valued and
+    its point embedding strengthened, as :func:`_decoder` makes them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from zeroshape_tpu_torch import config, recon
+
+    opt = config.encoders_opt(64)
+    opt.arch.depth.n_blocks = opt.arch.rgb.n_blocks = 2
+    model = recon.build(opt)
+    impl = model.graph.impl_network
+    with torch.no_grad():
+        impl.point_proj.proj.weight.mul_(8.0)
+        for prm in impl.parameters():
+            prm.copy_(_bf(prm))
+    model.repack()
+    assert model.packed is not None and impl.semantic
+    rgb, mask = config.synthetic_image(64, seed=1)
+    batch = {"rgb_input_map": rgb, "mask_input_map": mask}
+    with torch.inference_mode():
+        caches = model.graph.encode_latents(model.graph.encode_image(recon._inputs(batch, model.device)))
+        assert caches[0][0].shape[2] == 17
+        pts = torch.rand(2000, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(1)) * 3 - 1.5
+        got = ik.fused_decode(impl, caches, pts, model.packed).cpu().numpy()
+        plain = copy.deepcopy(impl)
+        plain.dtype = torch.float32
+        want = plain.decode([(k.float(), v.float()) for k, v in caches], pts[None])[0][0].cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=8e-2, atol=2e-2)
+    assert np.corrcoef(got, want)[0, 1] > 0.9999 and np.abs(got - want).mean() < 5e-3
+    recon.calibrate_random_field(model, batch, target=40, vox_res=16)
+    before = _counts()
+    world, *_ = recon.reconstruct(model, batch, torch.Generator(device="cuda").manual_seed(0), vox_res=16,
+                                  capacity=64, num_points=300)
+    torch.cuda.synchronize()
+    k1, _, n_plain = (a - b for a, b in zip(_counts(), before))
+    assert (k1, n_plain) == (2, 0)
+    assert tuple(world.shape) == (300, 3) and torch.isfinite(world).all()
 
 
 # ---------------------------------------------------------------------------

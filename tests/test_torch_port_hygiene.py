@@ -31,6 +31,7 @@ def _port_modules():
 
 
 def test_importing_the_port_loads_no_jax():
+    assert {"zeroshape_tpu_torch.models.rgb_enc", "zeroshape_tpu_torch.models.coord_enc"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"

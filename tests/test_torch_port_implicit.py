@@ -25,6 +25,7 @@ from zeroshape_tpu.ops.implicit_kernel import fused_supported as j_fused_support
 from zeroshape_tpu.ops.implicit_kernel import pack_decoder_params as j_pack
 from zeroshape_tpu_torch import config
 from zeroshape_tpu_torch import weights as W
+from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
 from zeroshape_tpu_torch.models.implicit import Implicit
 from zeroshape_tpu_torch.ops import implicit_kernel as ik
 
@@ -108,23 +109,30 @@ def test_wrapper_on_cpu_is_the_plain_decode(small):
         ("impl.mlp_layers", 4),
         ("impl.mlp_ratio", 2.0),
         ("impl.skip_in", [2]),
+        ("rgb.encoder", "resnet"),
+        ("rgb.encoder", "transformer"),
+        ("depth.encoder", "transformer"),
+        ("depth.encoder", None),
+        ("impl.posenc_3D", 4),
+        ("impl.posenc_perlayer", True),
+        ("impl.mlp_layers", 0),
     ],
 )
 def test_fused_gate_matches_jax(key, value):
     """``kernel_supported`` is the JAX ``fused_supported``, and the packer
-    accepts exactly the decoders it accepts."""
+    accepts exactly the decoders it accepts, for the decoder that
+    ``ShapeGraph.from_opt`` builds. A semantic decoder (an RGB encoder) is
+    K1's: its trunk takes both streams outside the kernel. One with 3D
+    positional encoding or without a skip MLP is not."""
     opt = config.full_opt()
     if key is not None:
         node, *path = [opt.arch] + key.split(".")
         for p in path[:-1]:
             node = node[p]
         node[path[-1]] = value
-    arch, impl = opt.arch, opt.arch.impl
-    port = Implicit(
-        latent_dim=arch.latent_dim, n_channels=impl.n_channels, n_blocks_attn=impl.att_blocks,
-        n_layers_mlp=impl.mlp_layers, num_heads=arch.num_heads, mlp_ratio=impl.mlp_ratio,
-        skip_in=tuple(impl.skip_in),
-    )
+    with torch.device("meta"):  # shapes only; the decoder alone gets (uninitialised) storage
+        graph = ShapeGraph.from_opt(opt)
+    port = graph.impl_network.to_empty(device="cpu")
     assert ik.kernel_supported(port) == j_fused_supported(opt)
     if j_fused_supported(opt):
         ik.pack_decoder_params(port)
@@ -308,7 +316,7 @@ def test_training_forward_matches_jax_with_shared_drop_path_masks(small):
     port.train()
     try:
         pts = t(points2).requires_grad_(True)
-        occ, attn = port(t(latent2), pts, train=True, dp_masks=[t(mk) for mk in masks])
+        occ, attn = port(t(latent2), None, pts, train=True, dp_masks=[t(mk) for mk in masks])
         (occ * t(w)).sum().backward()
     finally:
         port.eval()

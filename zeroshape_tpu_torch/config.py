@@ -1,4 +1,5 @@
-"""Attribute-dict config, the two model configurations the port ships, the
+"""Attribute-dict config, the model configurations the port ships (the shipped
+shape model, its tiny-decoder test size, the non-default encoders), the
 evaluation options, the training recipes (``shape_gen``, ``depth`` and
 ``depth_gen``, the accuracy gate's), and the CLI options.
 
@@ -95,6 +96,20 @@ def tiny_opt(H=32):
     opt.arch.impl.mlp_layers = 4
     opt.arch.impl.skip_in = [2]
     opt.arch.depth.n_blocks = 2
+    return opt
+
+
+def encoders_opt(H=224):
+    """``full_opt`` with the non-default encoders at ``options/shape.yaml``'s
+    own depths: the transformer coordinate encoder (12 blocks over the
+    coordinate map downsampled by ``dsp`` 2: 112^2 at 224^2, windows of 8,
+    196 window tokens + cls) and the transformer RGB encoder (12 blocks over
+    16^2 patches: 196 + cls). The decoder takes both streams (a 512-wide
+    latent projection) and is K1's shape otherwise: latent 256, 8 heads,
+    C=256, L=197."""
+    opt = full_opt(H)
+    opt.arch.depth = Config({"encoder": "transformer", "n_blocks": 12, "dsp": 2})
+    opt.arch.rgb = Config({"encoder": "transformer", "n_blocks": 12})
     return opt
 
 

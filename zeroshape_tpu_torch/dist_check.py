@@ -138,7 +138,7 @@ def parts(graph, device):
         xs = [torch.tensor(x[r * local: (r + 1) * local], dtype=torch.float32, device=device) for x in inputs]
         if name == "impl_network":
             module.drop_path = 0.5
-            out = module(*xs, True, shape_engine.step_generator(0, 0, device))[0]
+            out = module(xs[0], None, xs[1], True, shape_engine.step_generator(0, 0, device))[0]
         else:
             out = module(*xs)
         w = torch.tensor(rng.normal(size=(B,) + tuple(out.shape[1:]))[r * local: (r + 1) * local],

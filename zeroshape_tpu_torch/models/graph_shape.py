@@ -4,18 +4,27 @@ DPT depth + intrinsics head -> unproject and unit-sphere normalise -> coordinate
 encoder -> latent tokens -> implicit decoder on the GT-normalised SDF samples
 (the training forward), with the loss terms (:func:`compute_loss`) and the
 attention statistics (:func:`attn_geo_stats`). Inference decodes through
-``recon``. Ported for the shipped configuration: the ResNet coordinate
-encoder and no RGB encoder. Submodules carry the reference names
-(``dpt_depth``, ``intr_head``, ``intr_proj``, ``coord_encoder``,
-``impl_network``), so a reference ``.ckpt`` state dict loads as is.
+``recon``. Every architecture of the JAX ``ShapeGraph.from_opt`` builds:
+the coordinate encoder ``arch.depth.encoder`` (``resnet``, or
+``transformer`` over the map downsampled by ``dsp``; None means
+``transformer``), the optional RGB encoder ``arch.rgb.encoder`` (``resnet``
+or ``transformer``, whose tokens the decoder takes beside the coordinate
+tokens) and the decoder options ``arch.impl.posenc_3D``,
+``posenc_perlayer`` and ``mlp_layers`` (0: a linear head). Submodules carry
+the reference names (``dpt_depth``, ``intr_head``, ``intr_proj``,
+``coord_encoder``, ``rgb_encoder``, ``impl_network``), so a reference
+``.ckpt`` state dict of the shipped configuration loads as is.
 
 Batch layout at the boundary (NHWC, as the JAX package):
   rgb_input_map [B, H, W, 3] in [0, 1], mask_input_map [B, H, W, 1]; for
   supervision also depth_input_map [B, H, W, 1], intr [B, 3, 3],
   pose_gt [B, 3, 4], gt_sample_points [B, N, 3], gt_sample_sdf [B, N].
 
-BatchNorm follows the module's mode, as the JAX modules follow ``train``:
-batch statistics after ``.train()``, running statistics after ``.eval()``.
+BatchNorm and stochastic depth follow the module's mode, as the JAX modules
+follow ``train``: batch statistics after ``.train()``, running statistics
+after ``.eval()``. The stochastic-depth masks of a training forward come
+from one ``generator``, drawn in the order the modules run (RGB encoder,
+coordinate encoder, decoder), or are given as ``dp_masks``.
 """
 
 from __future__ import annotations
@@ -25,10 +34,11 @@ import torch.nn as nn
 
 from zeroshape_tpu_torch import camera, losses
 from zeroshape_tpu_torch.models import compute_autocast, fp32_region
-from zeroshape_tpu_torch.models.coord_enc import CoordEncRes
+from zeroshape_tpu_torch.models.coord_enc import CoordEncAtt, CoordEncRes
 from zeroshape_tpu_torch.models.dpt import DPTDepthModel
 from zeroshape_tpu_torch.models.implicit import Implicit
 from zeroshape_tpu_torch.models.layers import BottleneckConv
+from zeroshape_tpu_torch.models.rgb_enc import RGBEncAtt, RGBEncRes
 from zeroshape_tpu_torch.ops.image import adaptive_avg_pool_11, interpolate_coordmap
 
 FOCAL_BASE = 1.3875  # reference graph_shape.py:98
@@ -70,6 +80,44 @@ class IntrHead(nn.Sequential):
         return adaptive_avg_pool_11(super().forward(feat))
 
 
+def architecture(opt):
+    """The :class:`ShapeGraph` keywords of ``opt``'s architecture, with the
+    JAX ``ShapeGraph.from_opt``'s defaults (graph_shape.py:98-124): the
+    coordinate encoder ``depth.encoder`` or ``transformer``, its
+    downsampling ``dsp`` 1 for ``resnet``, block counts 12 where unset."""
+    arch, impl = opt.arch, opt.arch.impl
+    return dict(
+        H=opt.H,
+        W=opt.W,
+        latent_dim=arch.latent_dim,
+        win_size=arch.win_size,
+        num_heads=arch.num_heads,
+        depth_encoder=arch.depth.encoder or "transformer",
+        depth_enc_blocks=arch.depth.get("n_blocks", 12),
+        depth_dsp=1 if arch.depth.encoder == "resnet" else arch.depth.get("dsp", 1),
+        rgb_encoder=arch.rgb.encoder,
+        rgb_enc_blocks=arch.rgb.get("n_blocks", 12),
+        impl_n_channels=impl.n_channels,
+        impl_att_blocks=impl.att_blocks,
+        impl_mlp_layers=impl.mlp_layers,
+        impl_mlp_ratio=impl.mlp_ratio,
+        impl_posenc_3D=int(impl.get("posenc_3D") or 0),
+        impl_posenc_perlayer=bool(impl.get("posenc_perlayer")),
+        impl_skip_in=tuple(impl.skip_in),
+        depth_head_init_scale=arch.depth.get("head_init_scale", 1.0) or 1.0,
+    )
+
+
+def stochastic_depth_masks(dp_masks):
+    """``dp_masks`` of a training forward by module: a dict with any of
+    ``rgb_encoder``, ``coord_encoder`` (each a list of a block's two masks)
+    and ``impl_network`` (a list of a block's mask); a list alone is the
+    decoder's. What is missing is drawn."""
+    if dp_masks is None:
+        return {}
+    return dict(dp_masks) if isinstance(dp_masks, dict) else {"impl_network": dp_masks}
+
+
 class ShapeGraph(nn.Module):
     """Single-image shape reconstruction model."""
 
@@ -87,17 +135,36 @@ class ShapeGraph(nn.Module):
         impl_skip_in=(2, 4, 6),
         depth_head_init_scale=1.0,
         dtype=torch.float32,
+        depth_encoder="resnet",
+        depth_enc_blocks=12,
+        depth_dsp=1,
+        rgb_encoder=None,
+        rgb_enc_blocks=12,
+        impl_posenc_3D=0,
+        impl_posenc_perlayer=False,
     ):
         super().__init__()
+        if depth_encoder not in ("resnet", "transformer") or rgb_encoder not in (None, "resnet", "transformer"):
+            raise ValueError(f"unknown encoder: depth {depth_encoder!r}, rgb {rgb_encoder!r}")
         self.H, self.W = H, W
         self.dtype = dtype
+        self.depth_encoder, self.depth_dsp, self.rgb_encoder_kind = depth_encoder, depth_dsp, rgb_encoder
         self.dpt_depth = DPTDepthModel(head_init_scale=depth_head_init_scale)
         self.intr_head = IntrHead(768)
         self.intr_proj = nn.Linear(768, 3)
-        self.coord_encoder = CoordEncRes(latent_dim, win_size)
+        if depth_encoder == "resnet":
+            self.coord_encoder = CoordEncRes(latent_dim, win_size)
+        else:
+            self.coord_encoder = CoordEncAtt(latent_dim, depth_enc_blocks, num_heads, win_size // depth_dsp)
+        if rgb_encoder == "resnet":
+            self.rgb_encoder = RGBEncRes(latent_dim, win_size)
+        elif rgb_encoder == "transformer":
+            self.rgb_encoder = RGBEncAtt(H, latent_dim, rgb_enc_blocks, num_heads, win_size)
+        else:
+            self.rgb_encoder = None
         self.impl_network = Implicit(
             num_patches=(H // win_size) ** 2,
-            latent_dim=latent_dim,
+            latent_dim=latent_dim * (2 if rgb_encoder else 1),
             n_channels=impl_n_channels,
             n_blocks_attn=impl_att_blocks,
             n_layers_mlp=impl_mlp_layers,
@@ -105,44 +172,36 @@ class ShapeGraph(nn.Module):
             mlp_ratio=impl_mlp_ratio,
             skip_in=impl_skip_in,
             dtype=dtype,
+            semantic=rgb_encoder is not None,
+            posenc_3D=impl_posenc_3D,
+            pos_perlayer=impl_posenc_perlayer,
         )
 
     @classmethod
     def from_opt(cls, opt, dtype=torch.float32):
-        arch = opt.arch
-        impl = arch.impl
-        if arch.depth.encoder != "resnet" or arch.rgb.encoder is not None:
-            raise NotImplementedError("only the resnet coordinate encoder without an RGB encoder is ported")
-        if int(impl.get("posenc_3D") or 0) != 0 or impl.get("posenc_perlayer"):
-            raise NotImplementedError("3D positional encoding options are not ported")
-        return cls(
-            H=opt.H,
-            W=opt.W,
-            latent_dim=arch.latent_dim,
-            win_size=arch.win_size,
-            num_heads=arch.num_heads,
-            impl_n_channels=impl.n_channels,
-            impl_att_blocks=impl.att_blocks,
-            impl_mlp_layers=impl.mlp_layers,
-            impl_mlp_ratio=impl.mlp_ratio,
-            impl_skip_in=tuple(impl.skip_in),
-            depth_head_init_scale=arch.depth.get("head_init_scale", 1.0) or 1.0,
-            dtype=dtype,
-        )
+        return cls(**architecture(opt), dtype=dtype)
 
-    def encode_image(self, batch):
+    def encode_image(self, batch, generator=None, dp_masks=None):
         """Image -> predictions dict (graph_shape.py:172-214).
 
         Returns NHWC ``depth_pred [B, H, W, 1]``, ``intr_pred [B, 3, 3]``,
-        ``validity_mask [B, HW]``, ``seen_points [B, HW, 3]`` and
-        ``latent_depth [B, N, C]``.
+        ``validity_mask [B, HW]``, ``seen_points [B, HW, 3]``,
+        ``latent_depth [B, N, C]`` and ``latent_semantic`` (``[B, N, C]``,
+        None without an RGB encoder). In training the transformer encoders'
+        stochastic depth comes from ``dp_masks`` (by module, as in
+        :func:`stochastic_depth_masks`) or ``generator``.
         """
         rgb = batch["rgb_input_map"].permute(0, 3, 1, 2)
         mask = batch["mask_input_map"].permute(0, 3, 1, 2)
         B = rgb.shape[0]
         dev = rgb.device
-        out = {}
+        masks = stochastic_depth_masks(dp_masks)
+        out = {"latent_semantic": None}
         with compute_autocast(dev, self.dtype):
+            if self.rgb_encoder_kind == "transformer":
+                out["latent_semantic"] = self.rgb_encoder(rgb, generator, masks.get("rgb_encoder"))
+            elif self.rgb_encoder_kind == "resnet":
+                out["latent_semantic"] = self.rgb_encoder(rgb)
             depth_pred, intr_feat = self.dpt_depth(rgb)
             intr_params = self.intr_proj(self.intr_head(intr_feat))
         out["depth_pred"] = depth_pred.float().permute(0, 2, 3, 1)
@@ -154,10 +213,20 @@ class ShapeGraph(nn.Module):
             seen_norm, _, _ = camera.normalize_seen_points(seen, validity_mask)
             out["seen_points"] = seen_norm
             seen_map = seen_norm.reshape(B, self.H, self.W, 3).permute(0, 3, 1, 2)
-            seen_dsp, mask_dsp = interpolate_coordmap(seen_map, (mask > 0.5).float(), (self.H, self.W))
+            dsp_hw = (self.H // self.depth_dsp, self.W // self.depth_dsp)
+            seen_dsp, mask_dsp = interpolate_coordmap(seen_map, (mask > 0.5).float(), dsp_hw)
         with compute_autocast(dev, self.dtype):
-            out["latent_depth"] = self.coord_encoder(seen_dsp, mask_dsp)
+            if self.depth_encoder == "resnet":
+                out["latent_depth"] = self.coord_encoder(seen_dsp, mask_dsp)
+            else:
+                out["latent_depth"] = self.coord_encoder(seen_dsp, mask_dsp[:, 0] > 0.5, generator,
+                                                         masks.get("coord_encoder"))
         return out
+
+    def encode_latents(self, out, dp_masks=None):
+        """The decoder's per-block K/V caches of ``encode_image``'s ``out``
+        (its latent trunk, with the semantic tokens where it takes them)."""
+        return self.impl_network.encode(out["latent_depth"], out["latent_semantic"], dp_masks)
 
     def gt_supervision(self, batch):
         """GT-normalised camera-frame SDF sample points, without gradient
@@ -188,17 +257,21 @@ class ShapeGraph(nn.Module):
         supervision (default: when the batch has SDF samples), the decoder's
         logits ``pred_sample_occ [B, N]`` and attention ``attn [B, N, L]``
         at the GT-normalised sample points. ``train`` must match the module's
-        mode; it turns on the decoder's stochastic depth, from ``dp_masks``
-        or drawn from ``generator``."""
+        mode; it turns on the stochastic depth of the decoder and the
+        transformer encoders, from ``dp_masks`` (a list: the decoder's; a
+        dict: by module, :func:`stochastic_depth_masks`) or drawn from
+        ``generator``."""
         if train != self.training:
             raise ValueError(f"forward(train={train}) on a module in {'train' if self.training else 'eval'} mode")
-        out = self.encode_image(batch)
+        masks = stochastic_depth_masks(dp_masks)
+        out = self.encode_image(batch, generator, masks)
         if with_supervision is None:
             with_supervision = "gt_sample_points" in batch and "gt_sample_sdf" in batch
         if with_supervision:
             out.update(self.gt_supervision(batch))
             out["pred_sample_occ"], out["attn"] = self.impl_network(
-                out["latent_depth"], out["gt_points_cam"], train, generator, dp_masks
+                out["latent_depth"], out["latent_semantic"], out["gt_points_cam"], train, generator,
+                masks.get("impl_network"),
             )
         return out
 

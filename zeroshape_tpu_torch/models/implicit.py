@@ -13,7 +13,8 @@ latent and point streams of a sample.
 (``ops/implicit_kernel.py``): the CPU runs it, and the kernel is held to it.
 Names follow the reference layout: ``point_proj.proj``, ``latent_proj``,
 the ``pos_embed`` buffer, ``blocks_attn.{i}.{norm1,attn.qkv,attn.proj,norm2,
-mlp.fc1,mlp.fc2}``, ``norm``, ``impl_mlp.layers.{l}``.
+mlp.fc1,mlp.fc2}``, ``norm``, ``impl_mlp.layers.{l}`` or, without an MLP,
+``pred_head``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from zeroshape_tpu_torch.models.layers import (
     Mlp,
     get_2d_sincos_pos_embed,
     make_drop_path_mask,
+    nerf_posenc,
+    nerf_posenc_dim,
     softplus_beta,
     split_heads,
 )
@@ -86,19 +89,24 @@ class MLPBlocks(nn.Module):
 
     ``num_hidden_layers`` hidden linears plus the output linear, Softplus
     (beta 100); the input ``[points | trunk]`` is re-concatenated after the
-    state (scaled by 1/sqrt(2)) at the ``skip_in`` layers.
+    state (scaled by 1/sqrt(2)) at the ``skip_in`` layers. With
+    ``posenc_res`` > 0 the points enter NeRF-encoded (``nerf_posenc``, fp32)
+    in the input and in every skip.
     """
 
-    def __init__(self, num_hidden_layers: int, n_channels: int, skip_in=()):
+    def __init__(self, num_hidden_layers: int, n_channels: int, skip_in=(), posenc_res: int = 0):
         super().__init__()
         self.skip_in = tuple(skip_in)
-        dims = [3 + n_channels] + [n_channels] * num_hidden_layers + [1]
+        self.posenc_res = posenc_res
+        dims = [nerf_posenc_dim(3, posenc_res) + n_channels] + [n_channels] * num_hidden_layers + [1]
         self.layers = nn.ModuleList(
             nn.Linear(dims[l] + (dims[0] if l in self.skip_in else 0), dims[l + 1])
             for l in range(len(dims) - 1)
         )
 
     def forward(self, points, trunk_feat):
+        if self.posenc_res > 0:
+            points = nerf_posenc(points.float(), self.posenc_res)
         inputs = torch.cat([points.to(trunk_feat.dtype), trunk_feat], dim=-1)
         x = inputs
         for l, lin in enumerate(self.layers):
@@ -114,9 +122,17 @@ class Implicit(nn.Module):
     """Implicit occupancy function conditioned on visible-surface latents.
 
     ``dtype`` is the compute dtype (bf16 runs under autocast); parameters
-    stay fp32. Only the shipped decoder options are ported: no 3D positional
-    encoding, no semantic stream, the skip MLP head, pos-embed on block 0.
-    ``drop_path`` is the stochastic-depth rate of training (implicit.py:168).
+    stay fp32. ``drop_path`` is the stochastic-depth rate of training
+    (implicit.py:168). The options of ``zeroshape_tpu/models/implicit.py``:
+
+    * ``semantic``: the latent trunk takes ``[latent_depth |
+      latent_semantic]`` on the feature axis; ``latent_dim`` is then the
+      width of both together;
+    * ``posenc_3D``: NeRF frequencies of the points in the skip MLP;
+    * ``pos_perlayer``: the pos-embed is added before every block, not only
+      the first;
+    * ``n_layers_mlp == 0``: a linear ``pred_head`` (xavier) replaces the
+      skip MLP.
     """
 
     def __init__(
@@ -131,11 +147,16 @@ class Implicit(nn.Module):
         skip_in=(2, 4, 6),
         drop_path=0.1,
         dtype=torch.float32,
+        semantic=False,
+        posenc_3D=0,
+        pos_perlayer=False,
     ):
         super().__init__()
         self.dtype = dtype
         self.drop_path = drop_path
         self.num_heads = num_heads
+        self.semantic = semantic
+        self.pos_perlayer = pos_perlayer
         self.point_proj = nn.Module()
         self.point_proj.proj = nn.Linear(3, n_channels)
         self.latent_proj = nn.Linear(latent_dim, n_channels)
@@ -146,7 +167,15 @@ class Implicit(nn.Module):
             for i in range(n_blocks_attn)
         )
         self.norm = nn.LayerNorm(n_channels, eps=1e-6)
-        self.impl_mlp = MLPBlocks(n_layers_mlp, n_channels, skip_in)
+        if n_layers_mlp > 0:
+            self.impl_mlp, self.pred_head = MLPBlocks(n_layers_mlp, n_channels, skip_in, posenc_3D), None
+        else:
+            self.impl_mlp, self.pred_head = None, nn.Linear(n_channels, 1)
+
+    @property
+    def output_layer(self):
+        """The linear that gives the logits: the skip MLP's last, or ``pred_head``."""
+        return self.pred_head if self.impl_mlp is None else self.impl_mlp.layers[-1]
 
     def dp_masks(self, batch, generator=None, device=None):
         """One stochastic-depth mask per block, shared by the latent and point
@@ -155,14 +184,20 @@ class Implicit(nn.Module):
             return [None] * len(self.blocks_attn)
         return [make_drop_path_mask(generator, batch, self.drop_path, device) for _ in self.blocks_attn]
 
-    def encode(self, latent_depth, dp_masks=None):
-        """Run the latent trunk once; returns the per-block (k, v) caches."""
+    def encode(self, latent_depth, latent_semantic=None, dp_masks=None):
+        """Run the latent trunk once; returns the per-block (k, v) caches.
+        A semantic decoder takes ``latent_semantic`` beside ``latent_depth``."""
+        if self.semantic and latent_semantic is None:
+            raise ValueError("a semantic decoder needs latent_semantic")
         dp_masks = dp_masks or [None] * len(self.blocks_attn)
         with compute_autocast(latent_depth.device, self.dtype):
-            h = self.latent_proj(latent_depth)
+            latent = latent_depth
+            if self.semantic:
+                latent = torch.cat([latent_depth, latent_semantic.to(latent_depth.dtype)], dim=-1)
+            h = self.latent_proj(latent)
             caches = []
             for l, (blk, m) in enumerate(zip(self.blocks_attn, dp_masks)):
-                if l == 0:
+                if self.pos_perlayer or l == 0:
                     h = h + self.pos_embed.to(h.dtype)
                 h, cache = blk.latent_step(h, m)
                 caches.append(cache)
@@ -177,16 +212,18 @@ class Implicit(nn.Module):
             for blk, cache, m in zip(self.blocks_attn, caches, dp_masks):
                 p, attn = blk.point_step(p, cache, m)
                 attn_vis.append(attn)
-            occ = self.impl_mlp(points_3D, self.norm(p))
+            out = self.norm(p)
+            occ = self.pred_head(out) if self.impl_mlp is None else self.impl_mlp(points_3D, out)
         return occ[..., 0].float(), torch.stack(attn_vis, dim=-1).mean(dim=-1)
 
-    def forward(self, latent_depth, points_3D, train=False, generator=None, dp_masks=None):
+    def forward(self, latent_depth, latent_semantic, points_3D, train=False, generator=None, dp_masks=None):
         """The training forward (implicit.py:256-259): latent trunk then the
         plain decode, with autograd; stochastic depth under ``train``, from
         ``dp_masks`` if given, else drawn from ``generator``. Never the
-        fused kernel, which has no backward."""
+        fused kernel, which has no backward. ``latent_semantic`` is None
+        unless the decoder is semantic."""
         if train != self.training:
             raise ValueError(f"forward(train={train}) on a module in {'train' if self.training else 'eval'} mode")
         if dp_masks is None:
             dp_masks = self.dp_masks(points_3D.shape[0], generator, points_3D.device)
-        return self.decode(self.encode(latent_depth, dp_masks), points_3D, dp_masks)
+        return self.decode(self.encode(latent_depth, latent_semantic, dp_masks), points_3D, dp_masks)

@@ -1,9 +1,11 @@
 """Shared building blocks (counterpart of ``zeroshape_tpu/models/layers.py``).
 
-ViT blocks, conv-BN residual bottlenecks, weight-standardised convs with
-TF-SAME padding (the ResNetV2 hybrid stem), stochastic depth and the sin-cos
-positional embedding. Modules are NCHW inside; submodule names follow the reference
-torch state-dict layout so released checkpoints load without renaming.
+ViT blocks (with stochastic depth), conv-BN residual bottlenecks,
+weight-standardised convs with TF-SAME padding (the ResNetV2 hybrid stem),
+the sin-cos and NeRF positional encodings, the LayerNorm-MLP bottleneck and
+the CLIP fusion blocks. Modules are NCHW inside; submodule names follow the
+reference torch state-dict layout so released checkpoints load without
+renaming.
 """
 
 from __future__ import annotations
@@ -41,6 +43,25 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int, cls_token: bool = Fa
     if cls_token:
         pos_embed = np.concatenate([np.zeros([1, embed_dim]), pos_embed], axis=0)
     return pos_embed.astype(np.float32)
+
+
+def nerf_posenc(x, num_freqs: int, include_input: bool = True):
+    """NeRF sin/cos frequency encoding (layers.py:53-63): ``[x, enc]`` where
+    ``enc`` holds, frequency by frequency (``2**f`` in ``x``'s dtype), the
+    sines of every coordinate, then their cosines."""
+    if num_freqs <= 0:
+        return x
+    freqs = 2.0 ** torch.arange(num_freqs, dtype=x.dtype, device=x.device)
+    xb = x[..., None, :] * freqs[:, None]  # [..., F, D]
+    enc = torch.cat([torch.sin(xb), torch.cos(xb)], dim=-1).reshape(*x.shape[:-1], -1)
+    return torch.cat([x, enc], dim=-1) if include_input else enc
+
+
+def nerf_posenc_dim(input_dim: int, num_freqs: int, include_input: bool = True) -> int:
+    """The width :func:`nerf_posenc` gives ``input_dim`` features (layers.py:66-69)."""
+    if num_freqs <= 0:
+        return input_dim
+    return input_dim * (2 * num_freqs + (1 if include_input else 0))
 
 
 # ---------------------------------------------------------------------------
@@ -121,18 +142,43 @@ class Attention(nn.Module):
 
 
 class ViTBlock(nn.Module):
-    """Pre-norm block: x += attn(LN(x)); x += mlp(LN(x)), LayerNorm eps 1e-6."""
+    """Pre-norm block: x += dp1(attn(LN(x))); x += dp2(mlp(LN(x))), LayerNorm
+    eps 1e-6 (layers.py:144-162).
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True):
+    Stochastic depth at rate ``drop_path``: ``drop_path1`` scales the
+    attention branch and ``drop_path2`` the MLP branch, each by its own
+    per-sample mask. ``forward`` takes the two masks, or in training draws
+    them from the default generator (:meth:`dp_masks`).
+    """
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 drop_path: float = 0.0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def dp_masks(self, batch, generator=None, device=None):
+        """The block's two masks, drawn from ``generator`` for the attention
+        branch then the MLP branch; Nones outside training or at rate 0."""
+        rate = self.drop_path1.rate
+        if not self.training or rate == 0.0:
+            return None, None
+        return tuple(make_drop_path_mask(generator, batch, rate, device) for _ in range(2))
+
+    def forward(self, x, masks=None):
+        m1, m2 = masks if masks is not None else self.dp_masks(x.shape[0], device=x.device)
+        x = x + self.drop_path1(self.attn(self.norm1(x)), m1)
+        return x + self.drop_path2(self.mlp(self.norm2(x)), m2)
+
+
+def block_masks(blocks, batch, generator=None, device=None, given=None):
+    """Each of ``blocks``' (ViTBlocks) two stochastic-depth masks: ``given``
+    where set, else drawn from ``generator`` block by block."""
+    return given if given is not None else [blk.dp_masks(batch, generator, device) for blk in blocks]
 
 
 # ---------------------------------------------------------------------------
@@ -279,3 +325,60 @@ class BottleneckConv(nn.Module):
         h = self.bn2(self.linear2(h))
         out = F.relu(h + x)
         return out[:, :, 0, 0] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm-MLP bottleneck and the CLIP fusion blocks (layers.py:298-357)
+# ---------------------------------------------------------------------------
+
+class BottleneckLinear(nn.Module):
+    """x + linear2(gelu(linear1(LN(x)))), LayerNorm eps 1e-6 (reference
+    utils/layers.py:64-74)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.linear1 = nn.Linear(dim, dim)
+        self.linear2 = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        return x + self.linear2(gelu_exact(self.linear1(self.norm(x))))
+
+
+class CLIPFusionBlockConcat(nn.Module):
+    """Fuse semantic tokens ``[B, N, C]`` with a global CLIP latent ``[B, C]``:
+    concat on the feature axis, ``n_layers`` :class:`BottleneckLinear` of
+    width 2C, a linear back to C, an exact GELU if ``act`` (reference
+    utils/layers.py:102-122). No graph of the package uses it."""
+
+    def __init__(self, dim: int, n_layers: int = 1, act: bool = True):
+        super().__init__()
+        self.act = act
+        self.bottlenecks = nn.ModuleList(BottleneckLinear(2 * dim) for _ in range(n_layers))
+        self.proj = nn.Linear(2 * dim, dim)
+
+    def forward(self, sem_latent, clip_latent):
+        h = torch.cat([sem_latent, clip_latent[:, None, :].expand_as(sem_latent)], dim=-1)
+        for blk in self.bottlenecks:
+            h = blk(h)
+        h = self.proj(h)
+        return gelu_exact(h) if self.act else h
+
+
+class CLIPFusionBlockAttn(nn.Module):
+    """Fuse through ``n_layers`` ViT blocks over ``[clip token | semantic
+    tokens]``, the semantic rows out, an exact GELU if ``act`` (reference
+    utils/layers.py:124-147). The blocks carry drop path 0.1 but, as in the
+    JAX package, always run without it. No graph of the package uses it."""
+
+    def __init__(self, dim: int, n_layers: int = 1, num_heads: int = 8, act: bool = True):
+        super().__init__()
+        self.act = act
+        self.blocks = nn.ModuleList(ViTBlock(dim, num_heads, 4.0, drop_path=0.1) for _ in range(n_layers))
+
+    def forward(self, sem_latent, clip_latent):
+        h = torch.cat([clip_latent[:, None, :].to(sem_latent.dtype), sem_latent], dim=1)
+        for blk in self.blocks:
+            h = blk(h, (None, None))
+        out = h[:, 1:, :]
+        return gelu_exact(out) if self.act else out

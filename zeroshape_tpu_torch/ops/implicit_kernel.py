@@ -31,16 +31,24 @@ FC_CHUNK = 64  # hidden columns of one fc1 / fc2 product pair
 def kernel_supported(impl) -> bool:
     """Whether ``impl`` has the shapes the kernel is built for: the port's
     ``fused_supported`` (``zeroshape_tpu/ops/implicit_kernel.py:54-72``).
-    A decoder without them decodes with the plain ``Implicit.decode``."""
-    blocks = impl.blocks_attn
+    A decoder without them decodes with the plain ``Implicit.decode``.
+
+    The latent trunk runs outside the kernel, so a semantic decoder (whose
+    trunk takes both streams, 2 x 256 wide) is accepted like any other with
+    256-wide latents per stream. The skip MLP must take the raw points: a
+    first linear of 3 + C inputs (no 3D positional encoding), and there must
+    be one (``mlp_layers`` 8, not 0)."""
+    blocks, mlp = impl.blocks_attn, impl.impl_mlp
     return (
-        impl.latent_proj.in_features == 256
+        impl.latent_proj.in_features == 256 * (2 if impl.semantic else 1)
         and impl.point_proj.proj.out_features == C
         and impl.num_heads == N_HEADS
         and len(blocks) == N_BLOCKS
         and blocks[0].mlp.fc1.out_features == HIDDEN
-        and len(impl.impl_mlp.layers) == N_LINEARS
-        and tuple(impl.impl_mlp.skip_in) == SKIP_IN
+        and mlp is not None
+        and len(mlp.layers) == N_LINEARS
+        and mlp.layers[0].in_features == 3 + C
+        and tuple(mlp.skip_in) == SKIP_IN
     )
 
 
@@ -49,7 +57,7 @@ def _check_module(impl):
     if not kernel_supported(impl):
         raise ValueError(
             "the fused decoder kernel is built for latent_dim 256, C=256, 8 heads, 2 blocks, "
-            "mlp_ratio 4, 9 skip-MLP linears with skips at (2, 4, 6)"
+            "mlp_ratio 4, 9 skip-MLP linears with skips at (2, 4, 6), no 3D positional encoding"
         )
 
 

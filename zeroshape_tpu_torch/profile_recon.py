@@ -1,10 +1,11 @@
 """Where one full-size 128^3 reconstruction spends its time on the card.
 
-    python -m zeroshape_tpu_torch.profile_recon
+    python -m zeroshape_tpu_torch.profile_recon [--arch.depth.encoder=transformer --arch.rgb.encoder=transformer ...]
 
 Sets up the main path as chip_smoke.py does (``recon.synthetic_setup``:
 seeded weights, a seeded synthetic image, the calibrated random field, one
-warm-up), then traces a few reconstructions with ``torch.profiler``.
+warm-up; dotted options go over ``config.full_opt()``, as on the CLIs), then
+traces a few reconstructions with ``torch.profiler``.
 Prints, per reconstruction: the host-clock median, the device time under
 each stage span of ``recon.reconstruct`` (encode_image, latent_trunk,
 grid_decode, surface_sample), the device's busy and idle share, and the
@@ -13,17 +14,21 @@ device kernels that take the most time.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from zeroshape_tpu_torch import recon
+from zeroshape_tpu_torch import config, recon
 
 STAGES = ("encode_image", "latent_trunk", "grid_decode", "surface_sample")
 
 
-def main(reps=5):
-    model, batch, gen, (_, _, n_active) = recon.synthetic_setup()
+def main(argv=None, reps=5):
+    overrides = config.parse_arguments(sys.argv[1:] if argv is None else argv)
+    opt = config.override_options(config.full_opt(), overrides)
+    model, batch, gen, (_, _, n_active) = recon.synthetic_setup(opt=opt)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = recon.time_reconstructions(model, batch, gen, reps)
     events = prof.key_averages()

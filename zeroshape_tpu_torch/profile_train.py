@@ -1,9 +1,11 @@
 """Where one full-width training step spends its time on the card.
 
-    python -m zeroshape_tpu_torch.profile_train [--task=shape|depth] [--steps=5] [--batch_size=8]
+    python -m zeroshape_tpu_torch.profile_train [--task=shape|depth] [--steps=5] [--batch_size=8] \
+        [--arch.depth.encoder=transformer --arch.rgb.encoder=resnet ...]
 
 Builds the ``shape_gen`` model (or with ``--task=depth`` the ``depth_gen``
-depth graph; full width, bf16 autocast, seeded weights) and one batch of
+depth graph; full width, bf16 autocast, seeded weights; any other dotted
+option goes over the preset, as on the train CLI) and one batch of
 analytic training views at 224^2, takes two warm-up steps,
 then traces ``steps`` steps with ``torch.profiler``. Prints, per step: the
 host-clock median (each step ending in a sync), the device time under each
@@ -33,12 +35,13 @@ from zeroshape_tpu_torch.weights import init_like_flax
 SPANS = ("train_forward", "train_loss", "train_backward", "optimizer_step")
 
 
-def setup(batch_size=8, device=None, task="shape"):
+def setup(batch_size=8, device=None, task="shape", overrides=None):
     """(opt, graph, optimizer, batch) of a full-width ``shape_gen`` step, or
-    with ``task="depth"`` a ``depth_gen`` step, on ``device`` (None -> cuda)."""
+    with ``task="depth"`` a ``depth_gen`` step, on ``device`` (None -> cuda);
+    ``overrides`` (nested options) go over the preset."""
     dev = resolve_device(device)
     depth = task == "depth"
-    opt = config.depth_gen_opt() if depth else config.shape_gen_opt()
+    opt = config.override_options(config.depth_gen_opt() if depth else config.shape_gen_opt(), overrides or {})
     n_views = -(-batch_size // 4) + 1  # four objects, one validation view each
     data = analytic.train_samples(n_objects=4, n_views=n_views, H=opt.H, seed=0)
     graph = (DepthGraph if depth else ShapeGraph).from_opt(opt, dtype=resolve_compute_dtype(opt, dev))
@@ -65,8 +68,8 @@ def timed_steps(opt, graph, optimizer, batch, steps, first_it=0):
 
 def main(argv=None):
     args = config.parse_arguments(sys.argv[1:] if argv is None else argv)
-    steps, batch_size, task = args.get("steps", 5), args.get("batch_size", 8), args.get("task", "shape")
-    opt, graph, optimizer, batch = setup(batch_size, task=task)
+    steps, batch_size, task = args.pop("steps", 5), args.pop("batch_size", 8), args.pop("task", "shape")
+    opt, graph, optimizer, batch = setup(batch_size, task=task, overrides=args)
     timed_steps(opt, graph, optimizer, batch, 2)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = timed_steps(opt, graph, optimizer, batch, steps, first_it=2)

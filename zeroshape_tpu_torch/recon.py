@@ -134,8 +134,7 @@ def calibrate_random_field(model, batch, target=ACTIVE_TARGET, vox_res=VOX_RES, 
     """
     graph = model.graph
     with torch.inference_mode():
-        latent = graph.encode_image(_inputs(batch, model.device))["latent_depth"]
-        caches = graph.impl_network.encode(latent)
+        caches = graph.encode_latents(graph.encode_image(_inputs(batch, model.device)))
         pts = coarse_lattice(vox_res, rng, FACTOR, model.device)
         n = vox_res // FACTOR + 1
         logits = decode_points(model, caches, pts[None])[0].reshape(n, n, n)
@@ -145,7 +144,7 @@ def calibrate_random_field(model, batch, target=ACTIVE_TARGET, vox_res=VOX_RES, 
             count = int(_select_active_cells(occ, MARGIN, 1)[2])
             if count <= target:
                 break
-    out = graph.impl_network.impl_mlp.layers[-1]
+    out = graph.impl_network.output_layer
     with torch.no_grad():
         out.weight.mul_(gain)
         out.bias.sub_(shift).mul_(gain)
@@ -153,15 +152,17 @@ def calibrate_random_field(model, batch, target=ACTIVE_TARGET, vox_res=VOX_RES, 
     return shift, gain, count
 
 
-def synthetic_setup(device=None):
+def synthetic_setup(device=None, opt=None):
     """The full-size main path on seeded random weights and a seeded
-    synthetic 224^2 image, calibrated and warmed up once.
+    synthetic image (224^2, or ``opt.H``), calibrated and warmed up once;
+    ``opt`` picks another architecture than ``config.full_opt()``'s (e.g.
+    ``config.encoders_opt()``).
 
     Returns ``(model, batch, generator, calibration)``, the last being
     :func:`calibrate_random_field`'s ``(shift, gain, n_active)``.
     """
-    model = build(device=device, seed=0)
-    rgb, mask = synthetic_image(224, seed=0)
+    model = build(opt, device=device, seed=0)
+    rgb, mask = synthetic_image(model.graph.H, seed=0)
     batch = {"rgb_input_map": rgb, "mask_input_map": mask}
     calibration = calibrate_random_field(model, batch)
     generator = torch.Generator(device=model.device).manual_seed(0)
@@ -213,7 +214,7 @@ def reconstruct_batch(
     with record_function("encode_image"):
         out = graph.encode_image(inputs)
     with record_function("latent_trunk"):
-        caches = graph.impl_network.encode(out["latent_depth"])
+        caches = graph.encode_latents(out)
 
     def decode_fn(pts):  # [B, T, 3] -> [B, T]
         return model.sharpen * decode_points(model, caches, pts)
@@ -298,7 +299,7 @@ def reconstruct_with_attn(model, batch, generator=None, vox_res=VOX_RES, num_poi
                                  dtype=torch.float32, device=dev) for k in MODEL_KEYS if k in batch}
     B = inputs["rgb_input_map"].shape[0]
     out = graph(inputs, train=False)
-    caches = graph.impl_network.encode(out["latent_depth"])
+    caches = graph.encode_latents(out)
 
     def decode_fn(pts):
         logits, attn = graph.impl_network.decode(caches, pts)

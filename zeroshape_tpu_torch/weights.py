@@ -132,18 +132,65 @@ def map_resnet50(tp, path=()):
     return out
 
 
-def map_coord_encoder(tp, path=()):
+def map_coord_encoder(tp, path=(), proj="depth_feat_proj"):
+    """``CoordEncRes``, or with ``proj="rgb_feat_proj"`` ``RGBEncRes``."""
     out = map_resnet50(_p(tp, "encoder"), path + ("encoder",))
     out += _bottleneck_conv(_p(tp, "encoder.fc.0"), path + ("fc_bottleneck1",))
     out += _bottleneck_conv(_p(tp, "encoder.fc.1"), path + ("fc_bottleneck2",))
     out += _linear(_p(tp, "encoder.fc.2"), path + ("fc_linear",))
-    out += _bottleneck_conv(_p(tp, "depth_feat_proj.0"), path + ("feat_bottleneck1",))
-    out += _bottleneck_conv(_p(tp, "depth_feat_proj.1"), path + ("feat_bottleneck2",))
-    return out + _conv(_p(tp, "depth_feat_proj.2"), path + ("feat_proj",), wrapped=False)
+    out += _bottleneck_conv(_p(tp, f"{proj}.0"), path + ("feat_bottleneck1",))
+    out += _bottleneck_conv(_p(tp, f"{proj}.1"), path + ("feat_bottleneck2",))
+    return out + _conv(_p(tp, f"{proj}.2"), path + ("feat_proj",), wrapped=False)
+
+
+def _param(tk, path):
+    return [(tk, "params", path, None)]
+
+
+def map_vit_trunk(tp, path, n_blocks):
+    """The cls token, ``n_blocks`` ViT blocks and the final norm of
+    ``CoordEncAtt`` / ``RGBEncAtt``."""
+    out = _param(_p(tp, "cls_token"), path + ("cls_token",))
+    for i in range(n_blocks):
+        out += _vit_block(_p(tp, f"blocks.{i}"), path + (f"block{i}",))
+    return out + _norm(_p(tp, "norm"), path + ("norm",))
+
+
+def map_coord_emb(tp, path=()):
+    """``CoordEmb``, the window embedding of ``CoordEncAtt``."""
+    out = _linear(_p(tp, "pos_embed"), path + ("pos_embed",))
+    out += _param(_p(tp, "invalid_coord_token"), path + ("invalid_coord_token",))
+    out += _param(_p(tp, "cls_token"), path + ("cls_token",))
+    return out + _vit_block(_p(tp, "blocks.0"), path + ("block0",))
+
+
+def map_coord_encoder_att(tp, path=(), n_blocks=12):
+    """``CoordEncAtt``: the window embedding ``coord_embed``, then the trunk."""
+    return map_coord_emb(_p(tp, "coord_embed"), path + ("coord_embed",)) + map_vit_trunk(tp, path, n_blocks)
+
+
+def map_rgb_encoder_att(tp, path=(), n_blocks=12):
+    """``RGBEncAtt``: the patch conv, then the trunk."""
+    return _conv(_p(tp, "patch_embed.proj"), path + ("patch_embed",), wrapped=False) + map_vit_trunk(tp, path, n_blocks)
+
+
+def map_bottleneck_linear(tp, path=()):
+    return (_norm(_p(tp, "norm"), path + ("norm",)) + _linear(_p(tp, "linear1"), path + ("linear1",))
+            + _linear(_p(tp, "linear2"), path + ("linear2",)))
+
+
+def map_clip_fusion(tp, path=(), n_layers=1, attn=False):
+    """``CLIPFusionBlockConcat`` or, with ``attn``, ``CLIPFusionBlockAttn``
+    (used by no graph of the package)."""
+    if attn:
+        return [e for i in range(n_layers) for e in _vit_block(_p(tp, f"blocks.{i}"), path + (f"block{i}",))]
+    out = [e for i in range(n_layers) for e in map_bottleneck_linear(_p(tp, f"bottlenecks.{i}"), path + (f"bottleneck{i}",))]
+    return out + _linear(_p(tp, "proj"), path + ("proj",))
 
 
 def map_implicit(tp, path=(), n_blocks=2, n_mlp_linears=9):
-    """``Implicit``; the ``pos_embed`` buffer is a fixed sin-cos table, not a weight."""
+    """``Implicit``; the ``pos_embed`` buffer is a fixed sin-cos table, not a
+    weight. ``n_mlp_linears`` 0: the linear ``pred_head`` in place of the MLP."""
     out = _linear(_p(tp, "point_proj.proj"), path + ("point_proj",))
     out += _linear(_p(tp, "latent_proj"), path + ("latent_proj",))
     for i in range(n_blocks):
@@ -157,6 +204,8 @@ def map_implicit(tp, path=(), n_blocks=2, n_mlp_linears=9):
     out += _norm(_p(tp, "norm"), path + ("norm",))
     for l in range(n_mlp_linears):
         out += _linear(_p(tp, f"impl_mlp.layers.{l}"), path + ("impl_mlp", f"lin{l}"))
+    if n_mlp_linears == 0:
+        out += _linear(_p(tp, "pred_head"), path + ("pred_head",))
     return out
 
 
@@ -168,14 +217,30 @@ def map_intr_head(head_prefix, proj_prefix, path=()):
     )
 
 
-def map_shape_graph(impl_blocks=2, impl_mlp_linears=9):
-    """Every entry of the shape graph (resnet coordinate encoder, no RGB encoder)."""
-    return (
-        map_dpt_depth("dpt_depth", ("dpt_depth",))
-        + map_intr_head("intr_head", "intr_proj", ("intr_head",))
-        + map_coord_encoder("coord_encoder", ("coord_encoder",))
-        + map_implicit("impl_network", ("impl_network",), impl_blocks, impl_mlp_linears)
-    )
+def map_shape_graph(impl_blocks=2, impl_mlp_linears=9, opt=None):
+    """Every entry of the shape graph. Without ``opt``: the resnet coordinate
+    encoder, no RGB encoder and the given decoder depths. With ``opt`` (the
+    options ``ShapeGraph.from_opt`` reads), the entries of the graph it
+    builds: either coordinate encoder and its depth, the RGB encoder if any
+    and its depth, the decoder's blocks and its MLP or ``pred_head``."""
+    from zeroshape_tpu_torch.models.graph_shape import architecture
+
+    depth, depth_blocks, rgb, rgb_blocks = "resnet", 12, None, 12
+    if opt is not None:
+        a = architecture(opt)
+        depth, depth_blocks, rgb, rgb_blocks = a["depth_encoder"], a["depth_enc_blocks"], a["rgb_encoder"], \
+            a["rgb_enc_blocks"]
+        impl_blocks, impl_mlp_linears = a["impl_att_blocks"], a["impl_mlp_layers"] + (a["impl_mlp_layers"] > 0)
+    out = map_dpt_depth("dpt_depth", ("dpt_depth",)) + map_intr_head("intr_head", "intr_proj", ("intr_head",))
+    if depth == "resnet":
+        out += map_coord_encoder("coord_encoder", ("coord_encoder",))
+    else:
+        out += map_coord_encoder_att("coord_encoder", ("coord_encoder",), depth_blocks)
+    if rgb == "resnet":
+        out += map_coord_encoder("rgb_encoder", ("rgb_encoder",), proj="rgb_feat_proj")
+    elif rgb == "transformer":
+        out += map_rgb_encoder_att("rgb_encoder", ("rgb_encoder",), rgb_blocks)
+    return out + map_implicit("impl_network", ("impl_network",), impl_blocks, impl_mlp_linears)
 
 
 def map_depth_graph():
@@ -204,14 +269,15 @@ def convert(entries, params, batch_stats=None):
     return sd
 
 
-def from_flax(params, batch_stats, impl_blocks=2, impl_mlp_linears=9, graph="shape"):
+def from_flax(params, batch_stats, impl_blocks=2, impl_mlp_linears=9, graph="shape", opt=None):
     """The JAX ``graph``'s (``"shape"`` or ``"depth"``) ``params`` /
-    ``batch_stats`` -> this port's state dict."""
+    ``batch_stats`` -> this port's state dict; a shape graph's entries
+    follow ``opt``'s architecture where given (:func:`map_shape_graph`)."""
     if graph == "depth":
         return convert(map_depth_graph(), params, batch_stats)
     if graph != "shape":
         raise ValueError(f"unknown graph {graph!r}")
-    return convert(map_shape_graph(impl_blocks, impl_mlp_linears), params, batch_stats)
+    return convert(map_shape_graph(impl_blocks, impl_mlp_linears, opt), params, batch_stats)
 
 
 def unmapped(key, buffers):
@@ -254,20 +320,23 @@ def init_like_flax(model, seed=0):
     """Seeded random weights drawn as the JAX modules initialise them.
 
     Kernels lecun-normal, biases zero, norms identity, BatchNorm statistics
-    (0, 1); the implicit decoder's projections and skip MLP xavier-uniform
-    (implicit.py:41); the ViT pos-embed normal(0.02); the depth head's last
-    conv scaled by ``head_init_scale`` with bias 0.05; the intrinsics
-    projection zero (graph_shape.py:65-71).
+    (0, 1); the implicit decoder's projections and skip MLP or ``pred_head``
+    xavier-uniform (implicit.py:41); the ViT pos-embed normal(0.02); the cls
+    and invalid-coordinate tokens of the transformer encoders normal(0.02);
+    the depth head's last conv scaled by ``head_init_scale`` with bias
+    0.05; the intrinsics projection zero (graph_shape.py:65-71).
     """
+    from zeroshape_tpu_torch.models.coord_enc import CoordEmb, CoordEncAtt
     from zeroshape_tpu_torch.models.dpt import DPTDepthModel, HybridViT
     from zeroshape_tpu_torch.models.implicit import Implicit
+    from zeroshape_tpu_torch.models.rgb_enc import RGBEncAtt
 
     g = torch.Generator().manual_seed(seed)
     xavier = set()
     for mod in model.modules():
         if isinstance(mod, Implicit):
-            xavier |= {id(mod.point_proj.proj), id(mod.latent_proj)}
-            xavier |= {id(l) for l in mod.impl_mlp.layers}
+            xavier |= {id(mod.point_proj.proj), id(mod.latent_proj), id(mod.output_layer)}
+            xavier |= {id(l) for l in (mod.impl_mlp.layers if mod.impl_mlp is not None else ())}
             for blk in mod.blocks_attn:
                 xavier |= {id(blk.attn.qkv), id(blk.attn.proj)}
     with torch.no_grad():
@@ -288,6 +357,10 @@ def init_like_flax(model, seed=0):
             if isinstance(mod, HybridViT):
                 nn.init.normal_(mod.pos_embed, std=0.02, generator=g)
                 mod.cls_token.zero_()
+            if isinstance(mod, CoordEmb):
+                nn.init.normal_(mod.invalid_coord_token, std=0.02, generator=g)
+            if isinstance(mod, (CoordEmb, CoordEncAtt, RGBEncAtt)):
+                nn.init.normal_(mod.cls_token, std=0.02, generator=g)
             if isinstance(mod, DPTDepthModel):
                 head = mod.scratch.output_conv[4]
                 _lecun_normal_(head.weight, g, mod.head_init_scale**2)
