@@ -4,7 +4,8 @@ run the scoring and evaluation path at full size, then shape training, the
 accuracy gate, depth pretraining and its staging into shape training, the
 CLIs on datasets written to disk, in one process and in two, the visual
 layer: the turntable renderer, the dense decode with attention, the demo
-CLI's three runs and the engines' dumps, and the non-default encoders.
+CLI's three runs and the engines' dumps, the non-default encoders, then the
+benchmark, FLOP accounting and the dry run over two ranks.
 
     python3 chip_smoke.py
 
@@ -161,8 +162,20 @@ Phases (one line or more each, any failure exits non-zero):
      finite losses, launches, the device kernels of a step by
      ``torch.profiler``; a tiny fp32 step with both transformer encoders on
      the card and the CPU with every stochastic-depth mask given, held to
-     ``step_disagreements``.
-Then one JSON line of kernel numbers, the nvidia-smi line again, and the
+     ``step_disagreements``;
+ 29. the bench family, each a subprocess parsed back: ``python -m
+     zeroshape_tpu_torch.bench`` (its last line the four keys of the JSON
+     headline, value finite and positive, K1 2 launches a reconstruction,
+     n_active <= 4096, beside phase 4's median), ``bench throughput 1 8``
+     (images/s, K1 2 B a call), ``bench ab 5`` (the K1 and plain-decode
+     medians and each pair's ratio), ``mfu all`` (each row's FLOPs, seconds,
+     TFLOP/s and share of the bf16 peak under 100%; the reconstruction's
+     decoder count within 1% of ``mfu.decoder_flops``);
+ 30. the dry run, ``graft_entry.dryrun_multichip(2, full=True)``: two ranks
+     on the one card (gloo by the backend rule), one training step of the
+     shipped graph at 224^2 and the dense evaluation at vox 32, a finite loss
+     and two finite CDs, K1 once a rank; its seconds.
+Then the script's seconds, one JSON line of kernel numbers, the nvidia-smi line again, and the
 result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -209,16 +222,6 @@ def cuda_ms(fn, warmup=2, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def decoder_flops(P, L, C=256, n_blocks=2, hidden=1024, n_linears=9, skip_in=(2, 4, 6)):
-    """Operations the decoder needs for P points against L latent keys."""
-    per = 2 * 3 * C  # point_proj
-    per += n_blocks * (2 * C * 3 * C + 2 * (2 * C * L) + 2 * C * C + 2 * (2 * C * hidden))
-    for l in range(n_linears):
-        fan_in = 3 + C if l == 0 else C + (3 + C if l in skip_in else 0)
-        per += 2 * fan_in * (1 if l == n_linears - 1 else C)
-    return P * per
-
-
 def agree(got, ref, what):
     """Hold K1's logits to the plain version's within the bf16 bounds of
     tests/test_implicit_kernel.py; returns the max |d|."""
@@ -259,6 +262,8 @@ def sass_counts(lib):
 
 def k1_bound(P, L, packed):
     """(bound ms, bound_by, FLOP, bytes) of K1 on P points against L keys."""
+    from zeroshape_tpu_torch.mfu import decoder_flops
+
     flops = decoder_flops(P, L)
     nbytes = P * 3 * 4 + P * 4 + 2 * 2 * 8 * L * 32 * 2
     for v in packed.values():
@@ -494,20 +499,15 @@ def check_k3(x1, x2, what):
 
 def launch_counts():
     """The kernels' launch counts and the plain decodes of decoders K1 is not built for."""
-    from zeroshape_tpu_torch.ops.chamfer import nn_min_squared_fast, nn_one_way
-    from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode
-    from zeroshape_tpu_torch.recon import decode_points
+    from zeroshape_tpu_torch import bench
 
-    return {"K1": fused_decode.launches, "K2": nn_one_way.launches, "K3": nn_min_squared_fast.launches,
-            "plain": decode_points.plain_decodes}
+    return bench.launch_counts()
 
 
 def reset_counts():
-    from zeroshape_tpu_torch.ops.chamfer import nn_min_squared_fast, nn_one_way
-    from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode
-    from zeroshape_tpu_torch.recon import decode_points
+    from zeroshape_tpu_torch import bench
 
-    fused_decode.launches = nn_one_way.launches = nn_min_squared_fast.launches = decode_points.plain_decodes = 0
+    bench.reset_counts()
 
 
 def summed(counts):
@@ -620,23 +620,17 @@ def parse_results(tmp, res, thresholds):
 
 
 def evaluate_posture(model, samples, training, what=""):
-    """One evaluation of ``samples`` through ``shape_engine.evaluate``; returns
-    its launches and its seconds per sample. ``what`` names the model in the
-    printed line."""
-    from zeroshape_tpu_torch import recon
-    from zeroshape_tpu_torch.config import eval_opt, full_opt
+    """One evaluation of ``samples`` through ``bench.evaluate_posture``
+    (``shape_engine.evaluate`` at vox 128, eval batch 2, brute force); holds
+    its launches, metrics and result files; returns its launches and its
+    seconds per sample. ``what`` names the model in the printed line."""
+    from zeroshape_tpu_torch import bench
     from zeroshape_tpu_torch.runtime import shape_engine
 
     name = "validation" if training else "final"
-    opt = eval_opt(full_opt(), vox_res=recon.VOX_RES, brute_force=True, batch_size=2)
-    thresholds = tuple(opt.eval.f_thresholds)
     with tempfile.TemporaryDirectory() as tmp:
-        reset_counts()
-        t0 = time.perf_counter()
-        res = shape_engine.evaluate(model, samples, opt, tmp, ["prim"], training=training)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        n = launch_counts()
+        res, opt, n, seconds = bench.evaluate_posture(model, samples, training, tmp)
+        thresholds = tuple(opt.eval.f_thresholds)
         if training:  # validation writes no result files (shape_engine.py:605, 711): write them here
             if os.listdir(tmp):
                 fail(f"validation wrote {os.listdir(tmp)}")
@@ -650,8 +644,7 @@ def evaluate_posture(model, samples, training, what=""):
             eval_dumps(tmp, opt.data.dataset_test, res["idx"], "the final posture", meshes=True)
         parse_results(tmp, res, thresholds)
     k = len(samples)
-    want = {"K1": k, "K2": 288 * k, "K3": 0} if not training else {"K1": 2 * k, "K2": 6 * k, "K3": 72 * k}
-    want["plain"] = 0  # the shipped decoder decodes through K1 only
+    want = bench.expected_launches(k, training)  # the shipped decoder decodes through K1 only
     print(f"{what}evaluation, {name} posture ({'coarse-to-fine decode, pruned' if training else 'dense decode, exhaustive'} "
           f"search), {k} samples at batch 2: CD {res['val_metric']:.6f}, launches {n} (expected {want}); "
           f"{seconds / k:.3f} s/sample over the run, per batch {[round(x, 4) for x in res['s_per_sample']]}"
@@ -2067,18 +2060,119 @@ def encoders_phase(dev, main_median, samples, data):
     return summed([rec, val, in_val])
 
 
+def run_module(args, timeout=600, env=None):
+    """``python -m zeroshape_tpu_torch.<args>`` from the checkout's root; its
+    stdout lines and seconds. Fails unless it exits 0."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"zeroshape_tpu_torch.{args[0]}", *args[1:]], capture_output=True,
+                         text=True, timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env=dict(os.environ, **(env or {})))
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"{' '.join(args)} exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    return res.stdout.strip().splitlines(), res.stderr, seconds
+
+
+def bench_family(main_median):
+    """Phase 29: ``bench`` (the headline), ``bench throughput 1 8``, ``bench ab
+    5`` and ``mfu all``, each in a subprocess and parsed back. Returns the
+    launches these runs counted from 0 (the headline's counted
+    reconstruction, the throughput calls, the A/B's K1 warm-up)."""
+    import re
+
+    from zeroshape_tpu_torch.mfu import H100_BF16_FLOPS, decoder_flops
+
+    print("bench prediction (PERF.md §6): value 0.034-0.065 s/image (vs_baseline 15-30); recon ~2.7 TFLOP "
+          "of decode at 4-8% of the bf16 peak; the batch-28 step ~0.18 s at a low single-digit share")
+    lines, err, seconds = run_module(["bench"])
+    line = json.loads(lines[-1])
+    card_line = next((x for x in lines if x.startswith("bench: card ")), "")
+    found = re.search(r"K1 launches a reconstruction (\d+); n_active (\d+)", card_line)
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} or line["metric"] != "shape_recon_latency_vox128" \
+            or line["unit"] != "s/image" or not (np.isfinite(line["value"]) and line["value"] > 0):
+        fail(f"bench's last line {line}")
+    if found is None or int(found[1]) != 2 or int(found[2]) > 4096:
+        fail(f"bench's card line {card_line!r}: want K1 2 launches a reconstruction, n_active <= 4096")
+    spread = next((x for x in err.splitlines() if x.startswith("bench: median")), "")
+    print(f"bench (subprocess, {seconds:.1f} s): {lines[-1]}; {card_line}; {spread}; "
+          f"phase 4's median in this call {main_median:.4f} s")
+    launches = {"K1": 2, "K2": 0, "K3": 0}
+
+    lines, _, seconds = run_module(["bench", "throughput", "1", "8"])
+    sizes = json.loads(lines[-1])["sizes"]
+    for B in (1, 8):
+        r = sizes[str(B)]
+        if r["k1_per_call"] != 2 * B or not r["img_per_s"] > 0:
+            fail(f"bench throughput B={B}: {r}")
+        launches["K1"] += int(r["k1_per_call"])
+    print(f"bench throughput (subprocess, {seconds:.1f} s): " + "; ".join(
+        f"B={B} {sizes[str(B)]['img_per_s']:.2f} img/s ({sizes[str(B)]['s_per_batch']:.4f} s a call, K1 "
+        f"{sizes[str(B)]['k1_per_call']:g})" for B in (1, 8)))
+
+    lines, _, seconds = run_module(["bench", "ab", "5"])
+    ab = json.loads(lines[-1])
+    pairs = np.asarray(ab["pair_ratios"])
+    if len(pairs) != 5 or not np.isfinite(pairs).all():
+        fail(f"bench ab: {ab}")
+    launches["K1"] += 2
+    print(f"bench ab (subprocess, {seconds:.1f} s): median fused {ab['median']['fused']:.4f} s, plain "
+          f"{ab['median']['plain']:.4f} s, fused/plain {ab['ratio']:.3f}; pairs {np.round(pairs, 3).tolist()} "
+          f"(spread {pairs.min():.3f}-{pairs.max():.3f})")
+
+    lines, _, seconds = run_module(["mfu", "all"], env={"MFU_REPS": "5"})
+    rows = {r["name"]: r for r in json.loads(lines[-1])}
+    if set(rows) != {"train_step_b28", "depth_step_b44", "recon_vox128_hier_fused"}:
+        fail(f"mfu rows {sorted(rows)}")
+    for r in rows.values():
+        if not (r["flops"] > 0 and r["seconds"] > 0 and 0 < r["mfu_pct_h100_bf16"] < 100) or \
+                abs(r["tflops_per_s"] - r["flops"] / r["seconds"] / 1e12) > 1e-6 * r["tflops_per_s"] or \
+                abs(r["mfu_pct_h100_bf16"] - 100 * r["flops"] / r["seconds"] / H100_BF16_FLOPS) > 1e-6:
+            fail(f"mfu row {r}")
+        print(f"mfu {r['name']}: {r['flops'] / 1e9:.1f} GFLOP ({r['flops_source']}), {r['seconds']:.4f} s, "
+              f"{r['tflops_per_s']:.2f} TFLOP/s, {r['mfu_pct_h100_bf16']:.2f}% of the bf16 peak, "
+              f"{r['img_per_s']:.1f} img/s" + (f", peak {r['peak_gib']:.2f} GiB" if "peak_gib" in r else ""))
+    rec = rows["recon_vox128_hier_fused"]
+    want = decoder_flops(rec["decoded_points"], 197)
+    if abs(rec["decoder_flops_counted"] - want) > 0.01 * want:
+        fail(f"the recon row's decoder count {rec['decoder_flops_counted']} is not within 1% of decoder_flops {want}")
+    print(f"mfu (subprocess, {seconds:.1f} s): the recon row's decoder {rec['decoder_flops_counted'] / 1e12:.4f} "
+          f"TFLOP counted at {rec['decoded_points']} points against decoder_flops {want / 1e12:.4f} "
+          f"({rec['decoder_flops_counted'] / want - 1:+.2e}); the rest of the count (encoding) "
+          f"{(rec['flops'] - rec['decoder_flops_counted']) / 1e9:.1f} GFLOP")
+    return launches
+
+
+def dry_run():
+    """Phase 30: ``graft_entry.dryrun_multichip(2, full=True)``, both ranks on
+    the one card (gloo by the backend rule); returns its evaluation's launches."""
+    from zeroshape_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(2, full=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    cds = np.asarray(res["cd"])
+    print(f"dry run: 2 ranks ({res['backend']}), loss_all {res['loss']:.6f}, per-sample CD {cds.tolist()}, "
+          f"launches in the ranks' evaluation {res['launches']}; step {res['step_seconds']:.2f} s, evaluation "
+          f"{res['eval_seconds']:.2f} s, the call {seconds:.1f} s")
+    if not np.isfinite(res["loss"]) or cds.shape != (2,) or not np.isfinite(cds).all():
+        fail(f"the dry run gave loss {res['loss']}, CDs {cds}")
+    if res["launches"]["K1"] != 2 or res["launches"]["plain"] != 0:
+        fail(f"the dry run's evaluation launched {res['launches']}: want K1 once a rank (the dense grid)")
+    return {k: res["launches"][k] for k in ("K1", "K2", "K3")}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    t_start = time.perf_counter()
     from zeroshape_tpu_torch import resolve_device
     from zeroshape_tpu_torch.data import analytic
     from zeroshape_tpu_torch.ops.marching_cubes import marching_cubes_mesh, write_ply_mesh
 
+    from zeroshape_tpu_torch.bench import card
+
     dev = resolve_device(None)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     print(f"card: {smi}")
     import importlib.util
 
@@ -2164,15 +2258,22 @@ def main():
     del model
     torch.cuda.empty_cache()
     enc_launches = encoders_phase(dev, main_median, samples, data)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench_launches = bench_family(main_median)
+    print(f"phase 29 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    dry_launches = dry_run()
 
     # launches: the sum over the path runs (main path, final and validation
     # posture, the validations of the training run, the gate and the staged
     # run, the train CLI's validations and train-split metrics, the evaluate
     # CLI on the tree and on the three layouts, the demo's fast path, the
-    # encoders' reconstruction, evaluation and training validations), each
-    # counted from 0
+    # encoders' reconstruction, evaluation and training validations, the
+    # bench family's counted runs, the dry run's evaluation), each counted from 0
     launches = {k: (main_launches + demo_k1) * (k == "K1") + sum(
-        n[k] for n in (final, val, train_val, gate_val, staged_val, cli_val, tree_eval, layout_eval, enc_launches))
+        n[k] for n in (final, val, train_val, gate_val, staged_val, cli_val, tree_eval, layout_eval, enc_launches,
+                       bench_launches, dry_launches))
         for k in ("K1", "K2", "K3")}
     k1["launches"] = launches["K1"]
     kernels = [k1]
@@ -2189,6 +2290,7 @@ def main():
     if min(launches.values()) == 0:
         fail(f"a kernel of the paths was never launched: {launches}")
 
+    print(f"chip_smoke: phases 1-30 took {time.perf_counter() - t_start:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "card_bound_ms", "library_ms"]
     print(json.dumps({"kernels": [{k: kern[k] for k in order} for kern in kernels]}))

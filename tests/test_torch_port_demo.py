@@ -27,9 +27,9 @@ def test_options_match_the_jax_loader():
 
 def test_input_preparation_matches_the_jax_demo():
     """The crop before resizing is the JAX demo's exactly; after the resize
-    (PIL's premultiplied bicubic there, torch's antialiased bicubic on the
-    premultiplied uint8 image here, as the loaders resize) the image is within
-    3/255 and the binarised mask equal on >= 99.5% of pixels."""
+    (PIL's premultiplied bicubic there, its fixed-point arithmetic reproduced
+    in numpy here, ``data.common.resize_rgba``) the image is within 3/255 and
+    the binarised mask equal on >= 99.5% of pixels."""
     opt = demo.load_options(YAML)
     opt.H, opt.W = 96, 96
     for name in sorted(os.listdir(os.path.join(REPO, "examples", "images"))):

@@ -3,7 +3,7 @@
 shapes (a narrow decoder trains, validates, reconstructs and evaluates
 through the plain decode; the shipped one only through K1); and a training
 step on the card against the same step on the CPU, which launches none of
-the kernels.
+the kernels; the headline benchmark's last line and its K1 launches.
 
 These tests need a CUDA device and skip without one. This file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -12,7 +12,10 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
 """
 
 import copy
+import json
 import os
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -366,3 +369,24 @@ def test_train_step_on_the_card_matches_the_cpu_and_launches_no_kernel():
     assert (ik.fused_decode.launches, ch.nn_one_way.launches, ch.nn_min_squared_fast.launches) == before
     bad, _ = step_disagreements(opt, graph, cpu, card, cpu_1)
     assert not bad, bad[:10]
+
+
+@pytest.mark.gpu
+def test_bench_prints_the_headline_line_and_launches_k1_twice():
+    """``python -m zeroshape_tpu_torch.bench``: its last line is the headline
+    JSON with exactly the four keys of the JAX bench, and the line before
+    names the card and K1's 2 launches a reconstruction."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-m", "zeroshape_tpu_torch.bench"], cwd=repo, capture_output=True,
+                         text=True, timeout=900, env=dict(os.environ, BENCH_REPS="3"))
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = res.stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    assert set(line) == {"metric", "value", "unit", "vs_baseline"}
+    assert (line["metric"], line["unit"]) == ("shape_recon_latency_vox128", "s/image")
+    # vs_baseline is 1 / the unrounded median; value is that median to 4 decimals
+    assert 0 < line["value"] < 10 and abs(line["vs_baseline"] * line["value"] - 1) < 2e-3
+    card = [x for x in lines if x.startswith("bench: card ")]
+    assert len(card) == 1 and "K1 launches a reconstruction 2;" in card[0], lines

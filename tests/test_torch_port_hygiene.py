@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX, no JAX-package modules, no PIL, cv2 or
-matplotlib, no silent CPU."""
+matplotlib (cv2 and rembg only inside ``preprocess``, when it runs), no silent
+CPU."""
 
 import os
 import subprocess
@@ -9,7 +10,7 @@ import pytest
 import torch
 
 from __graft_entry__ import _full_opt, _tiny_opt
-from zeroshape_tpu_torch import camera, config, demo, dist_check, recon
+from zeroshape_tpu_torch import bench, camera, config, demo, dist_check, graft_entry, mfu, recon
 from zeroshape_tpu_torch import evaluate as evaluate_cli
 from zeroshape_tpu_torch.metrics import eval3d
 from zeroshape_tpu_torch.ops import render
@@ -31,7 +32,9 @@ def _port_modules():
 
 
 def test_importing_the_port_loads_no_jax():
-    assert {"zeroshape_tpu_torch.models.rgb_enc", "zeroshape_tpu_torch.models.coord_enc"} <= set(_port_modules())
+    assert {"zeroshape_tpu_torch.models.rgb_enc", "zeroshape_tpu_torch.models.coord_enc", "zeroshape_tpu_torch.bench",
+            "zeroshape_tpu_torch.mfu", "zeroshape_tpu_torch.graft_entry",
+            "zeroshape_tpu_torch.preprocess"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -88,6 +91,21 @@ def test_writers_renderer_and_demo_inputs_run_without_pil_cv2_matplotlib():
                                        "0_mesh_viz.gif", "0_pc.ply", "0_seen.mtl", "0_seen.obj"])
 
 
+def test_preprocess_without_rembg_or_cv2_raises_naming_both(tmp_path):
+    code = (
+        "import sys\n"
+        "for name in ('rembg', 'cv2'):\n"
+        "    sys.modules[name] = None  # any import of them raises\n"
+        "from zeroshape_tpu_torch import preprocess\n"
+        f"preprocess.main(['--indir=examples/images', '--outdir={tmp_path}'])\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "RuntimeError: background removal needs rembg or OpenCV (cv2)" in out.stderr, out.stderr[-2000:]
+    assert not os.listdir(tmp_path / "images")
+
+
 def test_port_sources_name_no_jax_package():
     for root, _, files in os.walk(PACKAGE):
         for f in files:
@@ -114,6 +132,10 @@ def test_port_sources_name_no_jax_package():
         lambda: dist_check.main(["unused"]),
         lambda: demo.main(["--datadir=unused"]),
         lambda: render.render_turntable(torch.zeros(1, 3, 3)),
+        lambda: bench.main([]),
+        lambda: mfu.main(["recon"]),
+        lambda: graft_entry.entry(),
+        lambda: graft_entry.dryrun_multichip(2),
     ],
 )
 def test_default_device_needs_cuda(entry, monkeypatch):

@@ -30,6 +30,57 @@ def resize_u8(img, out_hw):
     return np.ascontiguousarray(y[0].permute(1, 2, 0).numpy())
 
 
+PIL_PRECISION_BITS = 22  # fixed-point bits of PIL's 8-bit resampling (Resample.c)
+
+
+def _pil_bicubic(x):
+    x = np.abs(x)
+    return np.where(x < 1.0, ((1.5 * x - 2.5) * x) * x + 1.0,
+                    np.where(x < 2.0, (((x - 5.0) * x + 8.0) * x - 4.0) * -0.5, 0.0))
+
+
+def _pil_coefficients(in_size, out_size):
+    """``(first tap [out], fixed-point weights [out, taps])`` of PIL's bicubic
+    resampling of one axis (``precompute_coeffs``, ``normalize_coeffs_8bpc``)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    taps = np.arange(int(np.ceil(support)) * 2 + 1)
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    n = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    w = _pil_bicubic(((taps[None] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = np.where(taps[None] < n[:, None], w, 0.0)
+    total = np.zeros(out_size)
+    for t in taps:  # summed in PIL's order
+        total = total + w[:, t]
+    w = np.where(total[:, None] != 0.0, w / np.where(total == 0.0, 1.0, total)[:, None], w)
+    scaled = w * float(1 << PIL_PRECISION_BITS)
+    return xmin, np.trunc(np.where(w < 0, scaled - 0.5, scaled + 0.5)).astype(np.int64)
+
+
+def _pil_resample_axis(img, out_size, axis):
+    """One pass of PIL's 8-bit bicubic resampling along ``axis`` (0 or 1) of uint8 ``[H, W, C]``."""
+    xmin, k = _pil_coefficients(img.shape[axis], out_size)
+    idx = np.minimum(xmin[:, None] + np.arange(k.shape[1])[None], img.shape[axis] - 1)
+    x = np.moveaxis(img.astype(np.int64), axis, 0)[idx]  # [out, taps, other, C]
+    acc = (1 << (PIL_PRECISION_BITS - 1)) + np.einsum("otwc,ot->owc", x, k)
+    return np.moveaxis(np.clip(acc >> PIL_PRECISION_BITS, 0, 255).astype(np.uint8), 0, axis)
+
+
+def resize_u8_pil(img, out_hw):
+    """uint8 ``[H, W, C]`` -> uint8 ``[*out_hw, C]`` bit for bit as PIL's
+    ``Image.resize`` with its default bicubic filter: the horizontal pass,
+    then the vertical one, each rounded to 8 bits, on PIL's fixed-point
+    weights (``Resample.c``). Numpy on the host."""
+    img = np.asarray(img, np.uint8)
+    if img.shape[1] != out_hw[1]:
+        img = _pil_resample_axis(img, out_hw[1], 1)
+    if img.shape[0] != out_hw[0]:
+        img = _pil_resample_axis(img, out_hw[0], 0)
+    return img
+
+
 def load_image(path, out_hw=None, mode="RGB"):
     """uint8 ``[H, W, C]`` of ``path`` in PIL's ``mode``, resized to ``out_hw``
     only where its size differs."""
@@ -73,6 +124,34 @@ def get_bbox_from_mask(mask, thr=0.5, min_pixels=10):
     x0, x1 = get_1d_bounds(m.sum(axis=-2))
     y0, y1 = get_1d_bounds(m.sum(axis=-1))
     return x0, y0, x1, y1
+
+
+def square_crop(arr, bbox, expand=1.2):
+    """The 1.2x square crop of ``arr [H, W, ...]`` around ``bbox`` (``x0, y0,
+    x1, y1``); out-of-bounds regions become zeros (``common.py:64-83``)."""
+    x1, y1, x2, y2 = bbox
+    yc, xc = (y1 + y2) / 2, (x1 + x2) / 2
+    S = max(y2 - y1, x2 - x1) * expand
+    top, left, size = int(yc - S / 2), int(xc - S / 2), int(S)
+    out = np.zeros((size, size) + arr.shape[2:], arr.dtype)
+    y0, x0 = max(top, 0), max(left, 0)
+    y1_, x1_ = min(top + size, arr.shape[0]), min(left + size, arr.shape[1])
+    if y1_ > y0 and x1_ > x0:
+        out[y0 - top : y1_ - top, x0 - left : x1_ - left] = arr[y0:y1_, x0:x1_]
+    return out
+
+
+def resize_rgba(rgba, out_hw):
+    """PIL's resize of an RGBA image, bit for bit: to premultiplied ``RGBa``
+    (``c * a / 255`` rounded), resized (:func:`resize_u8_pil`), and back
+    (``255 * c // a``, clipped; unchanged where a is 0 or 255)."""
+    a = rgba[..., 3:].astype(np.int32)
+    t = rgba[..., :3].astype(np.int32) * a + 128
+    pm = np.concatenate([((t >> 8) + t) >> 8, a], axis=-1).astype(np.uint8)
+    out = resize_u8_pil(pm, out_hw).astype(np.int32)
+    a = out[..., 3:]
+    rgb = np.where((a == 0) | (a == 255), out[..., :3], np.minimum(255 * out[..., :3] // np.maximum(a, 1), 255))
+    return np.concatenate([rgb, a], axis=-1).astype(np.uint8)
 
 
 def erode_mask_np(mask_hw, iterations=5):

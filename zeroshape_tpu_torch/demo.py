@@ -67,46 +67,19 @@ def _bbox(mask):
     return xs[0], ys[0], xs[-1], ys[-1]
 
 
-def _square_crop(arr, bbox, expand=1.2):
-    """1.2x square crop around the bbox; out-of-bounds regions become zeros."""
-    x1, y1, x2, y2 = bbox
-    yc, xc = (y1 + y2) / 2, (x1 + x2) / 2
-    S = max(y2 - y1, x2 - x1) * expand
-    top, left, size = int(yc - S / 2), int(xc - S / 2), int(S)
-    out = np.zeros((size, size) + arr.shape[2:], arr.dtype)
-    y0, x0 = max(top, 0), max(left, 0)
-    y1_, x1_ = min(top + size, arr.shape[0]), min(left + size, arr.shape[1])
-    if y1_ > y0 and x1_ > x0:
-        out[y0 - top : y1_ - top, x0 - left : x1_ - left] = arr[y0:y1_, x0:x1_]
-    return out
-
-
 def crop_rgba(image_fname, mask_fname):
     """The image (RGB) with its mask (L) as alpha, uint8 RGBA, cropped 1.2x
     square around the mask's box (``mask >= 127``)."""
     image = common.load_image(image_fname, mode="RGB")
     mask = common.load_image(mask_fname, mode="L")
-    return _square_crop(np.concatenate([image, mask], axis=-1), _bbox((mask[..., 0] >= 127).astype(np.float32)))
-
-
-def resize_rgba(rgba, out_hw):
-    """PIL's resize of an RGBA image: to premultiplied ``RGBa``
-    (``c * a / 255`` rounded), resized (``common.resize_u8``), and back
-    (``255 * c // a``, clipped; unchanged where a is 0 or 255)."""
-    a = rgba[..., 3:].astype(np.int32)
-    t = rgba[..., :3].astype(np.int32) * a + 128
-    pm = np.concatenate([((t >> 8) + t) >> 8, a], axis=-1).astype(np.uint8)
-    out = common.resize_u8(pm, out_hw).astype(np.int32)
-    a = out[..., 3:]
-    rgb = np.where((a == 0) | (a == 255), out[..., :3], np.minimum(255 * out[..., :3] // np.maximum(a, 1), 255))
-    return np.concatenate([rgb, a], axis=-1).astype(np.uint8)
+    return common.square_crop(np.concatenate([image, mask], axis=-1), _bbox((mask[..., 0] >= 127).astype(np.float32)))
 
 
 def get_image(opt, image_fname, mask_fname):
     """(rgb [H, W, 3], mask [H, W, 1]) float32 in [0, 1]."""
     rgba = crop_rgba(image_fname, mask_fname)
     if rgba.shape[:2] != (opt.H, opt.W):
-        rgba = resize_rgba(rgba, (opt.H, opt.W))
+        rgba = common.resize_rgba(rgba, (opt.H, opt.W))
     arr = rgba.astype(np.float32) / 255.0
     rgb, m = arr[..., :3], arr[..., 3:]
     if opt.get("data", {}).get("bgcolor") is not None:

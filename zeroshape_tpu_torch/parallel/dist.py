@@ -22,6 +22,7 @@ Without a process group every function is the single-process identity.
 from __future__ import annotations
 
 import os
+import socket
 
 import numpy as np
 import torch
@@ -88,6 +89,14 @@ def init_distributed_from_env():
     print(f"rank {n_rank} of {n_world}: backend {backend}"
           + (f", cuda:{local_rank % cards}" if cards else ", CPU"), flush=True)
     return True
+
+
+def free_port():
+    """A TCP port of localhost that is free now (the address of a process group
+    that a caller starts itself)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def local_batch(global_batch):

@@ -69,26 +69,40 @@ class ReconModel:
     packed: dict | None  # the kernel's packed decoder weights (CUDA only)
     sharpen: float
     device: torch.device
+    # False: decode plainly even where K1 is built for the decoder (the
+    # benchmark's A/B and FLOP count, as the JAX bench's use_fused=False)
+    fused: bool = True
 
     def repack(self):
         """Re-pack the kernel weights after the graph's weights changed: on
         CUDA, for a decoder the kernel is built for; any other decoder keeps
         ``packed`` None and decodes plainly (:func:`decode_points`)."""
-        impl = self.graph.impl_network
-        supported = self.device.type == "cuda" and kernel_supported(impl)
-        self.packed = pack_decoder_params(impl) if supported else None
+        supported = self.device.type == "cuda" and uses_kernel(self)
+        self.packed = pack_decoder_params(self.graph.impl_network) if supported else None
         return self
+
+
+def uses_kernel(model):
+    """Whether :func:`decode_points` decodes ``model``'s points through K1."""
+    return getattr(model, "fused", True) and kernel_supported(model.graph.impl_network)
+
+
+def sync(device):
+    """Wait for ``device``'s queued work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def decode_points(model, caches, pts):
     """Logits ``[B, T]`` of ``pts [B, T, 3]`` against the caches of B samples,
     chosen by the decoder's shapes as the JAX engine chooses by
     ``fused_supported`` (``shape_engine.py:193-202``): K1, one launch a
-    sample, for a decoder the kernel is built for; any other decoder runs the
-    plain ``Implicit.decode`` in its compute dtype, one call for the batch,
-    counted in ``decode_points.plain_decodes``."""
+    sample, for a decoder the kernel is built for; any other decoder, or a
+    model with ``fused`` off, runs the plain ``Implicit.decode`` in its
+    compute dtype, one call for the batch, counted in
+    ``decode_points.plain_decodes``."""
     impl = model.graph.impl_network
-    if kernel_supported(impl):
+    if uses_kernel(model):
         return torch.stack([
             fused_decode(impl, [(k[b : b + 1], v[b : b + 1]) for k, v in caches], pts[b], model.packed)
             for b in range(pts.shape[0])
@@ -152,22 +166,23 @@ def calibrate_random_field(model, batch, target=ACTIVE_TARGET, vox_res=VOX_RES, 
     return shift, gain, count
 
 
-def synthetic_setup(device=None, opt=None):
-    """The full-size main path on seeded random weights and a seeded
-    synthetic image (224^2, or ``opt.H``), calibrated and warmed up once;
-    ``opt`` picks another architecture than ``config.full_opt()``'s (e.g.
-    ``config.encoders_opt()``).
+def synthetic_setup(device=None, opt=None, seed=0):
+    """The full-size main path on seeded random weights (seed 0) and a
+    synthetic image drawn from ``seed`` (224^2, or ``opt.H``), calibrated and
+    warmed up once; ``opt`` picks another architecture than
+    ``config.full_opt()``'s (e.g. ``config.encoders_opt()``).
 
-    Returns ``(model, batch, generator, calibration)``, the last being
+    Returns ``(model, batch, generator, calibration)``: the generator of the
+    surface draws is seeded by ``seed``, the calibration is
     :func:`calibrate_random_field`'s ``(shift, gain, n_active)``.
     """
     model = build(opt, device=device, seed=0)
-    rgb, mask = synthetic_image(model.graph.H, seed=0)
+    rgb, mask = synthetic_image(model.graph.H, seed=seed)
     batch = {"rgb_input_map": rgb, "mask_input_map": mask}
     calibration = calibrate_random_field(model, batch)
-    generator = torch.Generator(device=model.device).manual_seed(0)
+    generator = torch.Generator(device=model.device).manual_seed(seed)
     reconstruct(model, batch, generator)
-    torch.cuda.synchronize(model.device)
+    sync(model.device)
     return model, batch, generator, calibration
 
 
@@ -177,7 +192,7 @@ def time_reconstructions(model, batch, generator, reps=5):
     for _ in range(reps):
         t0 = time.perf_counter()
         reconstruct(model, batch, generator)
-        torch.cuda.synchronize(model.device)
+        sync(model.device)
         seconds.append(time.perf_counter() - t0)
     return seconds
 
