@@ -174,7 +174,20 @@ Phases (one line or more each, any failure exits non-zero):
  30. the dry run, ``graft_entry.dryrun_multichip(2, full=True)``: two ranks
      on the one card (gloo by the backend rule), one training step of the
      shipped graph at 224^2 and the dense evaluation at vox 32, a finite loss
-     and two finite CDs, K1 once a rank; its seconds.
+     and two finite CDs, K1 once a rank; its seconds;
+ 31. the two-stage chain at full width, cut in data and epochs
+     (``chain_phase``): ``python -m zeroshape_tpu_torch.round5 run`` on a
+     2 + 1 held-out object tree at 224^2 with one epoch of one step a
+     training, two stages at a time (depth, staged and scratch shape runs,
+     both arms' evaluations, the exact brute force, ``measure_hier`` on both
+     arms, the random floor, ``calibrate_gate 2``), then ``check_fused_engine``
+     on the calibrated field and ``time_bf``: every stage exits 0, both arms'
+     checkpoints hold the shape graph's keys, the result files parse, each
+     gate seed below 0.11; one step leaves each arm a random field whose
+     every coarse cell is active at sharpen 1, so ``measure_hier`` is then
+     run again on both arms' weights calibrated as in phase 21 and must
+     report n_active <= 4096; the launches of these subprocesses
+     (``ZS_LAUNCH_LOG``) join the kernel line's sums.
 Then the script's seconds, one JSON line of kernel numbers, the nvidia-smi line again, and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -1466,25 +1479,28 @@ def write_layout_trees(root):
             f.write("\n".join(f"mug1_{i:03d}.png" for i in range(n)))
 
 
-def calibrated_checkpoint(root, out):
-    """Phase 19's ``best.ckpt`` with its random field calibrated on the tree's
-    first validation view (``recon.calibrate_random_field`` at sharpen 1, the
-    CLI's): a trained field's active cells, so the coarse-to-fine decode keeps
-    within its capacity. Returns the file's path."""
+def calibrated_checkpoint(root, out, src=None, dst=None, what="phase 19's"):
+    """Phase 19's ``best.ckpt`` (or ``src``) with its random field calibrated on
+    the tree's first validation view (``recon.calibrate_random_field`` at
+    sharpen 1, the CLI's): a trained field's active cells, so the
+    coarse-to-fine decode keeps within its capacity. Written to
+    ``out/calibrated.ckpt`` (or ``dst``); returns the file's path."""
     from zeroshape_tpu_torch import config, recon
     from zeroshape_tpu_torch.data.synthetic import SyntheticDataset
     from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
 
     opt = config.shape_gen_opt()
     graph = ShapeGraph.from_opt(opt, dtype=torch.bfloat16)
-    graph.load_state_dict(torch.load(os.path.join(out, "best.ckpt"), map_location="cpu", weights_only=True)["graph"])
+    graph.load_state_dict(torch.load(src or os.path.join(out, "best.ckpt"), map_location="cpu",
+                                     weights_only=True)["graph"])
     model = recon.ReconModel(graph.cuda().eval(), None, 1.0, torch.device("cuda")).repack()
     opt.data.root = root
     view = SyntheticDataset(opt, split="test")[0]
     shift, gain, n = recon.calibrate_random_field(model, {k: view[k][None] for k in ("rgb_input_map", "mask_input_map")})
-    path = os.path.join(out, "calibrated.ckpt")
+    path = dst or os.path.join(out, "calibrated.ckpt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save({"graph": graph.state_dict()}, path)
-    print(f"calibrated phase 19's weights: output layer shifted by {-shift:.4f}, scaled by {gain:g}: {n} active cells")
+    print(f"calibrated {what} weights: output layer shifted by {-shift:.4f}, scaled by {gain:g}: {n} active cells")
     del model, graph
     torch.cuda.empty_cache()
     return path
@@ -2161,6 +2177,125 @@ def dry_run():
     return {k: res["launches"][k] for k in ("K1", "K2", "K3")}
 
 
+def chain_phase(log_dir=None):
+    """Phase 31: the two-stage chain at full width, cut in data and epochs.
+    ``generalize_e2e gen --n_objects=2 --holdout_objects=1`` at 224^2 (14
+    training views, 10 test views) into a temporary directory; ``round5 run``
+    on it with ``--max_epoch=1 --freq.eval=1`` (one step an epoch at batch 8,
+    validated before and after), two stages at a time, into a temporary
+    ``output_root`` (removed at the end); then ``check_fused_engine`` on the
+    calibrated field and ``time_bf``. Each is a subprocess whose launches come
+    back through ``ZS_LAUNCH_LOG``. Every stage must exit 0, both arms'
+    checkpoints hold every key of the shape graph, the result files parse and
+    each gate seed is below the gate's bound; ``measure_hier`` on both arms'
+    weights with their one-step fields calibrated (:func:`calibrated_checkpoint`)
+    must count at most 4096 active cells.
+    Returns the launches summed over the subprocesses."""
+    import re
+
+    from zeroshape_tpu_torch import LAUNCH_LOG, config
+    from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
+    from zeroshape_tpu_torch.runtime import checkpoint
+
+    t0 = time.perf_counter()
+    root, out = tempfile.mkdtemp(), tempfile.mkdtemp()
+    launch_log = os.path.join(root, "launches.jsonl")
+    env = {LAUNCH_LOG: launch_log}
+    try:
+        free = shutil.disk_usage(out).free / 2**30
+        data = os.path.join(root, "gen")
+        _, _, seconds = run_module(["generalize_e2e", "gen", data, "--n_objects=2", "--holdout_objects=1"], env=env)
+        print(f"chain: the tree (2 + 1 held-out objects x 8 views, 224^2) in {seconds:.1f} s; {free:.0f} GiB free "
+              f"where the runs go")
+        logs = log_dir or os.path.join(out, "round5")
+        cmd = [sys.executable, "-m", "zeroshape_tpu_torch.round5", "run", f"--data.root={data}", f"--output_root={out}",
+               f"--log_dir={logs}", "--max_epoch=1", "--freq.eval=1", "--jobs=2", "--gate_seeds=2"]
+        t1 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=os.path.dirname(
+            os.path.abspath(__file__)), env=dict(os.environ, **env))
+        chain_s = time.perf_counter() - t1
+        lines = proc.stdout.strip().splitlines()
+        print("\n".join(x for x in lines if x.startswith("[chain]") and " exit " in x))
+        if proc.returncode != 0:
+            for name in os.listdir(logs) if os.path.isdir(logs) else ():
+                print(f"--- {name} (tail)\n" + open(os.path.join(logs, name)).read()[-3000:])
+            fail(f"round5 run exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        res = json.loads(lines[-1])
+        bad = {n: s for n, s in res["stages"].items() if s["status"] != "ok" or s["rc"] != 0}
+        if len(res["stages"]) != 10 or bad:
+            fail(f"chain stages not all run and 0: {res['stages']}")
+        with torch.device("meta"):
+            want = checkpoint._expected(ShapeGraph.from_opt(config.shape_gen_opt()))
+        for arm in ("shape_gen_staged", "shape_gen"):
+            sd, meta, _ = checkpoint.load_reference_ckpt(os.path.join(out, "shape", arm, "best.ckpt"))
+            missing = [k for k in want if k not in sd]
+            if missing:
+                fail(f"{arm}/best.ckpt lacks {len(missing)} keys of the shape graph: {missing[:5]}")
+            print(f"chain: {arm}/best.ckpt holds all {len(want)} keys of the shape graph (epoch {meta['epoch']}, "
+                  f"best {meta['best_val']:.4f} @ {meta['best_ep']})")
+        cds = {k: res[k]["cd"] for k in ("eval_staged", "eval_scratch", "bf", "floor")}
+        if not np.isfinite(list(cds.values())).all() or res["eval_staged"]["seen"] is None or \
+                res["eval_staged"]["unseen"] is None or not res["bf"]["f_score"]:
+            fail(f"chain result files: {cds}, {res['eval_staged']}")
+        hier = res["hier"]
+        if sorted(hier) != ["shape_gen", "shape_gen_staged"] or max(h["max"] for h in hier.values()) > 32768:
+            fail(f"measure_hier: {hier}")
+        # one step leaves a random field, which at sharpen 1 marks every coarse cell active; measure_hier is
+        # held to the capacity on the arms' weights with their fields calibrated as phase 21 does
+        cal = [calibrated_checkpoint(data, None, os.path.join(out, "shape", arm, "best.ckpt"),
+                                     os.path.join(out, "calibrated", arm, "best.ckpt"), f"the chain's {arm}")
+               for arm in ("shape_gen_staged", "shape_gen")]
+        lines, _, seconds = run_module(["measure_hier", "--task=shape", f"--data.root={data}", f"--output_root={out}",
+                                        "--name=shape_gen_staged", f"--ckpt={cal[0]}", f"--extra_ckpts={cal[1]}"],
+                                       env=env)
+        from zeroshape_tpu_torch.round5 import hier_result
+
+        cal_hier = hier_result("\n".join(lines))
+        if sorted(cal_hier) != ["shape_gen", "shape_gen_staged"] or max(h["max"] for h in cal_hier.values()) > 4096:
+            fail(f"measure_hier on the calibrated arms: {cal_hier}")
+        print(f"measure_hier ({seconds:.1f} s): the chain's one-step fields {hier}; calibrated {cal_hier}")
+        seeds = res["gate"]["seeds"]
+        if len(seeds) != 2 or not all(c < GATE_CD_BOUND for c in seeds):
+            fail(f"calibrate_gate 2: seeds {seeds} (bound {GATE_CD_BOUND})")
+        for k in ("depth", "staged", "scratch"):
+            if [e for e, _ in res[k]["curve"]] != [0, 1] or not np.isfinite([v for _, v in res[k]["curve"]]).all():
+                fail(f"chain {k} validations {res[k]}")
+        print(f"chain (round5 run, {chain_s:.1f} s, 2 jobs): depth l1_err {res['depth']['l1_err_epoch0']:.4f} -> "
+              f"{res['depth']['l1_err_best']:.4f}; val CD staged {res['staged']['cd_epoch0']:.4f} -> "
+              f"{res['staged']['cd_best']:.4f}, scratch {res['scratch']['cd_epoch0']:.4f} -> "
+              f"{res['scratch']['cd_best']:.4f}; evaluate CD staged {cds['eval_staged']:.4f} (seen "
+              f"{res['eval_staged']['seen']:.4f}, unseen {res['eval_staged']['unseen']:.4f}), scratch "
+              f"{cds['eval_scratch']:.4f}; brute force {cds['bf']:.4f} (F@5% {res['bf']['f_score'].get('5.00')}); "
+              f"floor {cds['floor']:.4f}; gate seeds {seeds}")
+        print("chain stage seconds: " + ", ".join(f"{n} {s['seconds']}" for n, s in res["stages"].items()))
+
+        lines, _, seconds = run_module(["check_fused_engine"], env=env)
+        found = [x for x in lines if x.startswith(("coarse logit", "n_active", "binarized"))]
+        if lines[-1] != "FUSED ENGINE PATH OK" or len(found) != 3:
+            fail(f"check_fused_engine: {lines[-6:]}")
+        print(f"check_fused_engine (calibrated field, {seconds:.1f} s): " + "; ".join(found))
+        lines, _, seconds = run_module(["time_bf"], env=env)
+        rows = [x for x in lines if x.startswith("rot_batch=")]
+        if len(rows) != 6 or not lines[-1].startswith("rot_batch changes nothing: True; no prune beats the "
+                                                      "exhaustive search"):
+            fail(f"time_bf: {lines}")
+        print(f"time_bf ({seconds:.1f} s): " + "; ".join(rows + lines[-1:]))
+        counts = [json.loads(x) for x in open(launch_log)]
+        launches = {k: sum(c[k] for c in counts) for k in ("K1", "K2", "K3", "plain")}
+        by_module = {}
+        for c in counts:
+            mod = re.sub(r".*zeroshape_tpu_torch[./]", "", c["argv"][0]).removesuffix(".py")
+            by_module[mod] = {k: by_module.get(mod, {}).get(k, 0) + c[k] for k in ("K1", "K2", "K3", "plain")}
+        print(f"chain phase launches over {len(counts)} processes: {launches}; by module {by_module}")
+        if min(launches[k] for k in ("K1", "K2", "K3")) == 0:
+            fail(f"phase 31 left a kernel unlaunched: {launches}")
+    finally:
+        shutil.rmtree(root)
+        shutil.rmtree(out)
+    print(f"phase 31 took {time.perf_counter() - t0:.1f} s")
+    return {k: launches[k] for k in ("K1", "K2", "K3")}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2264,16 +2399,19 @@ def main():
     print(f"phase 29 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     dry_launches = dry_run()
+    torch.cuda.empty_cache()
+    chain_launches = chain_phase()
 
     # launches: the sum over the path runs (main path, final and validation
     # posture, the validations of the training run, the gate and the staged
     # run, the train CLI's validations and train-split metrics, the evaluate
     # CLI on the tree and on the three layouts, the demo's fast path, the
     # encoders' reconstruction, evaluation and training validations, the
-    # bench family's counted runs, the dry run's evaluation), each counted from 0
+    # bench family's counted runs, the dry run's evaluation, the chain's
+    # subprocesses), each counted from 0
     launches = {k: (main_launches + demo_k1) * (k == "K1") + sum(
         n[k] for n in (final, val, train_val, gate_val, staged_val, cli_val, tree_eval, layout_eval, enc_launches,
-                       bench_launches, dry_launches))
+                       bench_launches, dry_launches, chain_launches))
         for k in ("K1", "K2", "K3")}
     k1["launches"] = launches["K1"]
     kernels = [k1]
@@ -2290,7 +2428,7 @@ def main():
     if min(launches.values()) == 0:
         fail(f"a kernel of the paths was never launched: {launches}")
 
-    print(f"chip_smoke: phases 1-30 took {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-31 took {time.perf_counter() - t_start:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "card_bound_ms", "library_ms"]
     print(json.dumps({"kernels": [{k: kern[k] for k in order} for kern in kernels]}))

@@ -208,8 +208,8 @@ def test_train_cli_on_two_ranks_follows_one(runs):
     assert abs(two["losses"][0] - one["losses"][0]) <= 1e-4 * one["losses"][0], (two["losses"], one["losses"])
     assert [e for e, _ in two["val"]] == [0, 1] and abs(two["val"][0][1] - one["val"][0][1]) <= 1e-4 * one["val"][0][1]
     # with rank 0's visual dumps: vis_{ep} and its gallery at each validation, vis_log/iter_0 at the save_vis cadence
-    assert sorted(os.listdir(runs["two_train"])) == ["best.ckpt", "checkpoint", "latest.ckpt", "results_ep0.html",
-                                                     "results_ep1.html", "vis_0", "vis_1", "vis_log"]
+    assert sorted(os.listdir(runs["two_train"])) == ["best.ckpt", "checkpoint", "latest.ckpt", "options.yaml",
+                                                     "results_ep0.html", "results_ep1.html", "vis_0", "vis_1", "vis_log"]
     assert sorted(os.listdir(runs["two_train"] / "vis_0")) == sorted(os.listdir(runs["one_train"] / "vis_0"))
     a, b = (torch.load(runs[r] / "latest.ckpt", weights_only=True, mmap=True) for r in ("one_train", "two_train"))
     assert (b["iter"], b["best_ep"]) == (a["iter"], a["best_ep"]) == (2, 1)

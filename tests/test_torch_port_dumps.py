@@ -322,7 +322,7 @@ def test_train_cli_and_final_evaluation_write_the_jax_folders(tree, tmp_path, mo
         assert res["it"] == 2
         top = sorted(os.listdir(out))
         # validations before the first step and after epoch 2 (freq.eval=2): shape_engine.py:694-695, 875-885
-        assert top == sorted(["best.ckpt", "checkpoint", "latest.ckpt", "vis_log", "vis_0", "vis_2",
+        assert top == sorted(["best.ckpt", "checkpoint", "latest.ckpt", "options.yaml", "vis_log", "vis_0", "vis_2",
                               "results_ep0.html", "results_ep2.html"]), top
         assert sorted(os.listdir(out / "vis_log")) == ["iter_0", "iter_1"]  # shape_engine.py:561-568, 929-934
         for folder in ["vis_0", "vis_2", "vis_log/iter_0", "vis_log/iter_1"]:

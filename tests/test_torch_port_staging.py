@@ -86,7 +86,7 @@ def test_depth_cli_writes_reference_checkpoints_and_best_val(run):
     # with the visual dumps: vis_log/iter_0 at the save_vis cadence (the step counter starts at 0;
     # depth_engine.py:209-245) and the final evaluation's first batch (:296-319)
     assert sorted(os.listdir(out)) == ["best.ckpt", "best_val.txt", "checkpoint", "dump_synthetic", "latest.ckpt",
-                                       "vis_log"]
+                                       "options.yaml", "vis_log"]
     assert os.listdir(out / "vis_log") == ["iter_0"]
     viz = sorted(os.listdir(out / "vis_log" / "iter_0"))
     names = ("depth_est.png", "depth_input.png", "image_input.png", "mask_input.png", "seen_surface.ply")

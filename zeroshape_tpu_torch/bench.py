@@ -87,6 +87,15 @@ def _find_ckpt():
     return None
 
 
+def _tree_root():
+    """The analytic tree :func:`_real_sample` reads (``BENCH_DATA``, else
+    ``/tmp/overfit_data``, else ``/tmp/gen_data``); None without one."""
+    for root in (os.environ.get("BENCH_DATA", "/tmp/overfit_data"), "/tmp/gen_data"):
+        if os.path.isdir(os.path.join(root, "train_data")):
+            return root
+    return None
+
+
 def _real_sample(H):
     """The first training view of the analytic tree (``BENCH_DATA``, else
     ``/tmp/overfit_data``, else ``/tmp/gen_data``) at ``H``^2: numpy
@@ -95,10 +104,8 @@ def _real_sample(H):
     from zeroshape_tpu_torch.config import Config
     from zeroshape_tpu_torch.data.synthetic import Dataset
 
-    root = os.environ.get("BENCH_DATA", "/tmp/overfit_data")
-    if not os.path.isdir(os.path.join(root, "train_data")):
-        root = "/tmp/gen_data"
-    if not os.path.isdir(os.path.join(root, "train_data")):
+    root = _tree_root()
+    if root is None:
         return None
     opt = Config({"H": H, "W": H, "image_size": [H, H], "seed": 0,
                   "data": {"root": root, "bgcolor": 1, "num_workers": 0, "num_classes_test": 15, "max_img_cat": None,
@@ -141,7 +148,8 @@ def build(use_fused=None, device=None, ckpt=None, opt=None, seed=0):
         if batch is None:
             rgb, mask = synthetic_image(model.graph.H, seed=seed)
             batch = {"rgb_input_map": rgb, "mask_input_map": mask}
-        print(f"bench: trained weights from {ckpt} (epoch {meta.get('epoch')}, real input: {real})", file=sys.stderr)
+        tree = f"the first training view of {_tree_root()}" if real else "the synthetic image (no tree on disk)"
+        print(f"bench: trained weights from {ckpt} (epoch {meta.get('epoch')}), input {tree}", file=sys.stderr)
     else:
         model, batch, _, _ = recon.synthetic_setup(device, opt=opt, seed=seed)
     if use_fused is not None:

@@ -6,14 +6,19 @@ evaluation options, the training recipes (``shape_gen``, ``depth`` and
 Counterpart of ``zeroshape_tpu/config.py`` (the ``Config`` tree, the YAML
 loader with ``_parent_`` inheritance and dotted CLI overrides) and of the
 option builders in ``__graft_entry__.py`` (``_full_opt``, ``_tiny_opt``).
-PyYAML is imported only to read a YAML file; CLI values are parsed without
-it, so the CLIs run where PyYAML is absent.
+PyYAML is imported only to read a YAML file and to write ``options.yaml``
+(which has a form of its own without it); CLI values are parsed without it,
+so the CLIs run where PyYAML is absent.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import random
+import string
+import sys
+import time
 
 import numpy as np
 
@@ -170,8 +175,12 @@ def shape_gen_opt(H=224):
     ``options/shape.yaml``, on the analytic tree of ``/tmp/gen_data``:
     batch 8, 4096 SDF points, loss weights shape 1 / depth 1 / intr 10,
     lr = lr_ft = 1e-4, weight decay 0.05, the depth head initialised at
-    0.001, validation at vox 128, batch 1, without brute force."""
+    0.001, validation at vox 128, batch 1, without brute force. It holds
+    every key of those files that the port reads, so the train CLI's checked
+    overrides take them without a ``--yaml``."""
     return override_options(eval_opt(full_opt(H), batch_size=1, vox_res=128, brute_force=False, n_vis=2), {
+        "group": "shape", "load": None, "yaml": None, "task": "shape", "datadir": None, "ckpt": None,
+        "profile": False, "image_size": [H, H], "output_root": "output",
         "name": "shape_gen",
         "batch_size": 8,
         "max_epoch": 200,
@@ -316,13 +325,21 @@ def parse_arguments(args):
     return Config(opt_cmd)
 
 
-def override_options(opt, opt_over):
-    """``opt`` with the nested values of ``opt_over`` set over it (in place)."""
+def override_options(opt, opt_over, key_stack=(), safe_check=False):
+    """``opt`` with the nested values of ``opt_over`` set over it (in place).
+
+    With ``safe_check`` (the train CLI's overrides, ``config.py:128-149``) a
+    leaf key that ``opt`` does not hold raises ``KeyError`` naming its dotted
+    path, so a mistyped option fails instead of training the default."""
     for key, value in opt_over.items():
         if isinstance(value, dict):
             sub = opt.get(key)
-            opt[key] = override_options(sub if isinstance(sub, Config) else Config(), value)
+            opt[key] = override_options(sub if isinstance(sub, Config) else Config(), value, key_stack + (key,),
+                                        safe_check)
         else:
+            if safe_check and key not in opt:
+                raise KeyError(f"config key {'.'.join(key_stack + (key,))!r} not found in the options; "
+                               "check its spelling, or add it to the --yaml file")
             opt[key] = value
     return opt
 
@@ -341,3 +358,116 @@ def load_options(fname):
             base = override_options(base, load_options(cand))
         opt = override_options(base, opt)
     return opt
+
+
+def process_options(opt):
+    """The train CLI's derived fields (``config.py:180-195``): a random
+    four-letter suffix to ``name`` when ``seed`` is None, and ``freq.eval``
+    of None set to ``max(max_epoch // 20, 1)``. In place; returns ``opt``."""
+    if opt.get("seed") is None:
+        opt.name = f"{opt.get('name', 'run')}_{''.join(random.choice(string.ascii_uppercase) for _ in range(4))}"
+    freq = opt.get("freq")
+    if freq is not None and freq.get("eval") is None:
+        freq.eval = max(opt.get("max_epoch", 1) // 20, 1)
+    return opt
+
+
+def _plain(x):
+    """``x`` as plain dicts, lists and scalars (tuples become lists)."""
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return x
+
+
+def _yaml_scalar(x):
+    """One value in a form that both ``json.loads`` and ``yaml.safe_load`` read
+    back as itself: floats always carry a ``.`` (PyYAML reads ``1e-05`` as a
+    string), strings are double-quoted."""
+    import json
+
+    if isinstance(x, float):
+        r = repr(x)
+        return r.replace("e", ".0e", 1) if "e" in r and "." not in r else r
+    return json.dumps(x)
+
+
+def _yaml_text(x, indent=0):
+    """``x`` (plain, :func:`_plain`) as indented JSON whose floats PyYAML reads
+    as floats: the options file where PyYAML is not installed."""
+    pad = " " * (indent + 4)
+    if isinstance(x, dict):
+        if not x:
+            return "{}"
+        items = [f"{pad}{_yaml_scalar(str(k))}: {_yaml_text(v, indent + 4)}" for k, v in sorted(x.items())]
+        return "{\n" + ",\n".join(items) + "\n" + " " * indent + "}"
+    if isinstance(x, list):
+        return "[" + ", ".join(_yaml_text(v, indent) for v in x) + "]"
+    return _yaml_scalar(x)
+
+
+def _read_options_file(path):
+    """The dict an options file holds: with PyYAML any YAML; without it the
+    JSON form :func:`_yaml_text` writes, else None (not comparable)."""
+    import json
+
+    with open(path) as f:
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        try:
+            return json.loads(text)
+        except ValueError:
+            return None
+    return yaml.safe_load(text) or {}
+
+
+def _diff_options(old, new, path=""):
+    """Flat list of 'key: old -> new' lines between two plain dicts."""
+    lines = []
+    for key in sorted(set(old) | set(new)):
+        full = f"{path}.{key}" if path else str(key)
+        a, b = old.get(key, "<absent>"), new.get(key, "<absent>")
+        if isinstance(a, dict) and isinstance(b, dict):
+            lines += _diff_options(a, b, full)
+        elif a != b:
+            lines.append(f"  {full}: {a!r} -> {b!r}")
+    return lines
+
+
+def save_options_file(opt, path=None, grace_seconds=10):
+    """Write the resolved options to ``<output_path>/options.yaml``
+    (``save_options_file``, ``config.py:221-271``).
+
+    Over an existing file that differs, print the key-level diff first, and
+    where stdin is a TTY and ``debug`` is off, wait ``grace_seconds`` for a
+    ctrl-c (a mistyped ``--name`` would otherwise overwrite another run's
+    record). The file is PyYAML's block YAML, or without PyYAML indented
+    JSON that ``yaml.safe_load`` reads back equal. Returns the path."""
+    path = path or os.path.join(opt.output_path, "options.yaml")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    new = _plain(opt.to_dict())
+    if os.path.isfile(path):
+        old = _read_options_file(path)
+        diff = None if old is None else _diff_options(old, new)
+        if old is None:
+            print("existing options file found (not compared: PyYAML is not installed)")
+        elif diff:
+            print("existing options file found (different from current one):")
+            print("\n".join(diff))
+            if not opt.get("debug") and grace_seconds and hasattr(sys.stdin, "isatty") and sys.stdin.isatty():
+                print(f"please cancel (ctrl-c) within {grace_seconds} seconds if you do not want to override...")
+                time.sleep(grace_seconds)
+        else:
+            print("existing options file found (identical)")
+    try:
+        import yaml
+    except ImportError:
+        text = _yaml_text(new) + "\n"
+    else:
+        text = yaml.safe_dump(new, default_flow_style=False, indent=4)
+    with open(path, "w") as f:
+        f.write(text)
+    return path

@@ -5,10 +5,10 @@
         [--eval.vox_res=128] [--device=cpu] [--output_path=DIR]
     torchrun --nproc_per_node=N -m zeroshape_tpu_torch.evaluate ...     # N ranks
 
-The options and the engine are the train CLI's (``train.options``: the
-``--yaml`` file name's first ``_`` token or ``--task``, over the
-``shape_gen`` / ``depth_gen`` presets), with ``eval.n_vis = 1``
-(``evaluate.py:29``). The test split of ``data.dataset_test`` under
+The options and the engine are the train CLI's, unchecked
+(``train.options``: the ``--yaml`` file name's first ``_`` token or
+``--task``, over the ``shape_gen`` / ``depth_gen`` presets), with
+``eval.n_vis = 1`` (``evaluate.py:29``). The test split of ``data.dataset_test`` under
 ``data.root`` is loaded; rank 0 writes its ``data_list.txt`` into
 ``output_path``. The weights come from ``--ckpt`` (a reference ``.ckpt``,
 as ``--load`` reads it) or, with ``--resume``, from ``output_path``'s
@@ -62,7 +62,7 @@ def graph_for(opt, device):
 
 def main(argv=None):
     dist.init_distributed_from_env()
-    opt = options(sys.argv[1:] if argv is None else argv)
+    opt = options(sys.argv[1:] if argv is None else argv, safe_check=False)
     opt.eval.n_vis = 1
     dev = resolve_device(opt.get("device"))
     os.makedirs(opt.output_path, exist_ok=True)

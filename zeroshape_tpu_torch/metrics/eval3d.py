@@ -299,6 +299,7 @@ def brute_force_search(
     rot_samples=(24, 24, 12),
     prune=(1024, 128),
     fast_coarse=True,
+    rot_batch=ROT_BATCH,
 ):
     """Best-of-rotations alignment of one sample (``eval3d.py:376-474``).
 
@@ -311,11 +312,12 @@ def brute_force_search(
     with the exact full-cloud Chamfer (K2). ``prune=None`` is the exhaustive
     reference protocol. The reported metrics always come from the exact pass.
 
-    Rotations go ``ROT_BATCH`` at a time through the exact pass and
-    ``4 * ROT_BATCH`` at a time through the coarse one, padded with the first
-    rotation. Returns a dict: ``acc``, ``comp``, ``f_score [n_thr]``,
-    ``pc_pred [P, 3]`` (rotated and normalised), ``pc_gt`` (normalised) and
-    ``rotation [3, 3]``.
+    Rotations go ``rot_batch`` (default :data:`ROT_BATCH`) at a time through
+    the exact pass and ``4 * rot_batch`` at a time through the coarse one,
+    padded with the first rotation; the result does not depend on it.
+    Returns a dict: ``acc``, ``comp``, ``f_score [n_thr]``, ``pc_pred [P,
+    3]`` (rotated and normalised), ``pc_gt`` (normalised) and ``rotation [3,
+    3]``.
     """
     dev = pc_pred.device
     rotations = get_rotation_sphere(*rot_samples, device=dev)
@@ -328,7 +330,7 @@ def brute_force_search(
         pred_sub = pc_pred[:m]
         gt_idx = np.round(np.linspace(0, pc_gt.shape[0] - 1, m)).astype(np.int64)
         gt_sub = normalize_pc(pc_gt[torch.as_tensor(gt_idx, device=dev)][None])
-        cb = min(ROT_BATCH * 4, n_rot)
+        cb = min(rot_batch * 4, n_rot)
         cd_coarse = []
         for R in _pad_rotations(rotations, cb).split(cb):
             rot = normalize_pc(_rotate(R, pred_sub))
@@ -347,7 +349,7 @@ def brute_force_search(
         candidates = rotations
 
     n_cand = candidates.shape[0]
-    rb = min(ROT_BATCH, n_cand)
+    rb = min(rot_batch, n_cand)
     cand_p = _pad_rotations(candidates, rb)
     accs, comps, fs = [], [], []
     for R in cand_p.split(rb):

@@ -22,10 +22,14 @@ name (``synthetic``, ``pix3d``, ``ocrtoc``, ``omniobj3d``) under
 ``data.root``, as ``train.py`` reads them; the recipes' root is the tree
 ``python -m zeroshape_tpu_torch.generalize_e2e gen`` writes
 (``/tmp/gen_data``: 40 analytic objects x 8 views and 8 held-out objects).
-Under ``torchrun`` each rank joins the process group first
-(``parallel.dist.init_distributed_from_env``), trains on its rows of every
-global batch of ``batch_size``, and only rank 0 writes. Checkpoints and
-event files go to ``output_path`` (default ``{output_root}/{group}/{name}``).
+Overrides are checked: a key that neither the preset nor the ``--yaml``
+file holds raises ``KeyError`` naming it. Rank 0 writes the resolved options
+to ``output_path/options.yaml`` before training, printing the key-level diff
+against an earlier file there. Under ``torchrun`` each rank joins the
+process group first (``parallel.dist.init_distributed_from_env``), trains
+on its rows of every global batch of ``batch_size``, and only rank 0
+writes. Checkpoints and event files go to ``output_path`` (default
+``{output_root}/{group}/{name}``).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import os
 import sys
 
 from zeroshape_tpu_torch import config
-from zeroshape_tpu_torch.parallel.dist import init_distributed_from_env
+from zeroshape_tpu_torch.parallel.dist import init_distributed_from_env, is_main
 from zeroshape_tpu_torch.runtime import depth_engine, shape_engine
 
 ENGINES = {"depth": depth_engine, "shape": shape_engine}
@@ -54,16 +58,32 @@ def task_of(cli):
     return task
 
 
-def options(argv):
-    """The task's preset with the ``--yaml`` file and the CLI overrides over it."""
+# the port's own CLI keys, which no preset or YAML file holds
+CLI_KEYS = ("task", "device", "yaml", "output_path")
+
+
+def options(argv, safe_check=True):
+    """The task's preset with the ``--yaml`` file and the CLI overrides over it.
+
+    With ``safe_check`` (the train CLI, as JAX ``train.py:51``) an override
+    that names a key neither the preset nor the file holds raises
+    ``KeyError`` (``CLI_KEYS`` pass), and :func:`config.process_options`
+    derives the run's name suffix and ``freq.eval``; the evaluate and demo
+    CLIs pass ``safe_check=False``, as JAX ``evaluate.py:25`` does.
+    ``--output_path`` is kept where given; otherwise it is
+    ``{output_root}/{group}/{name}``."""
     cli = config.parse_arguments(argv)
     task = task_of(cli)
     base = config.depth_gen_opt() if task == "depth" else config.shape_gen_opt()
     opt = config.override_options(base, {"group": task, "output_root": "output"})
     if cli.get("yaml"):
         opt = config.override_options(opt, config.load_options(cli.yaml))
-    opt = config.override_options(opt, cli)
+    own = {k: cli.pop(k) for k in CLI_KEYS if k in cli}
+    opt = config.override_options(opt, cli, safe_check=safe_check)
+    opt.update(own)
     opt.task = task
+    if safe_check:
+        config.process_options(opt)
     if opt.get("image_size"):
         opt.H, opt.W = opt.image_size
     opt.setdefault("output_path", os.path.join(opt.output_root, opt.group, opt.name))
@@ -73,6 +93,8 @@ def options(argv):
 def main(argv=None):
     init_distributed_from_env()
     opt = options(sys.argv[1:] if argv is None else argv)
+    if is_main():
+        config.save_options_file(opt)
     return ENGINES[opt.task].train(opt, None, opt.output_path, device=opt.get("device"))
 
 
