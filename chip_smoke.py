@@ -187,7 +187,17 @@ Phases (one line or more each, any failure exits non-zero):
      every coarse cell is active at sharpen 1, so ``measure_hier`` is then
      run again on both arms' weights calibrated as in phase 21 and must
      report n_active <= 4096; the launches of these subprocesses
-     (``ZS_LAUNCH_LOG``) join the kernel line's sums.
+     (``ZS_LAUNCH_LOG``) join the kernel line's sums;
+ 32. the measurement tools (``timers_phase``): every subcommand of
+     ``time_train`` (batch, windows, parts, loader, midas, the depth probe)
+     and ``time_recon`` (components, hier_parts, decode, sampling,
+     k1_builds on the shipped source against itself) as subprocesses at cut
+     sizes, two subprocesses at a time, and ``analyze_trace`` on 2 traced
+     ``profile_train`` steps: each
+     last line parsed, its keys present and its numbers finite; the midas
+     medians bit-equal, both K1 builds within their bounds, the trace's
+     spans holding >= 95% of its device busy time; the launches join the
+     kernel line's sums.
 Then the script's seconds, one JSON line of kernel numbers, the nvidia-smi line again, and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -237,18 +247,17 @@ def cuda_ms(fn, warmup=2, iters=10):
 
 def agree(got, ref, what):
     """Hold K1's logits to the plain version's within the bf16 bounds of
-    tests/test_implicit_kernel.py; returns the max |d|."""
-    a, b = got.double().cpu().numpy(), ref.double().cpu().numpy()
-    d = np.abs(a - b)
-    corr = float(np.corrcoef(a, b)[0, 1])
-    print(f"K1 vs plain fp32 on the {what}, P={len(a)}: max|d| {d.max():.3e} mean|d| {d.mean():.3e} "
-          f"corr {corr:.6f} (logit std {b.std():.3f})")
-    if not np.isfinite(a).all():
-        fail(f"K1 gave non-finite logits on the {what}")
-    if not np.allclose(a, b, rtol=8e-2, atol=2e-2) or corr <= 0.9999 or d.mean() >= 5e-3:
+    tests/test_implicit_kernel.py (``time_recon.k1_agreement``); returns the
+    max |d|."""
+    from zeroshape_tpu_torch.time_recon import k1_agreement
+
+    ok, dmax, dmean, corr = k1_agreement(got, ref)
+    print(f"K1 vs plain fp32 on the {what}, P={len(got)}: max|d| {dmax:.3e} mean|d| {dmean:.3e} "
+          f"corr {corr:.6f} (logit std {float(ref.double().std()):.3f})")
+    if not ok:
         fail(f"K1 disagrees with its plain version on the {what} beyond rtol 8e-2, atol 2e-2, "
-             "corr 0.9999, mean 5e-3")
-    return float(d.max())
+             "corr 0.9999, mean 5e-3, or gave a non-finite logit")
+    return dmax
 
 
 def sass_counts(lib):
@@ -289,39 +298,21 @@ def k1_bound(P, L, packed):
 def check_k1(dev):
     """K1 vs its plain version at full width; returns the kernel's numbers."""
     from zeroshape_tpu_torch.metrics.eval3d import coarse_lattice, get_dense_3D_grid
-    from zeroshape_tpu_torch.models.implicit import Implicit
     from zeroshape_tpu_torch.ops import _build
     from zeroshape_tpu_torch.ops import implicit_kernel as ik
-    from zeroshape_tpu_torch.weights import init_like_flax
+    from zeroshape_tpu_torch.time_recon import K1_POINTS, k1_case
 
     found = sass_counts(_build.library_path(ik._NAME))
     if found is None:
         print("K1 SASS: no cuobjdump found")
     else:
         print(f"K1 SASS ({found[0]}): {found[1]}")
-    g = torch.Generator().manual_seed(1)
-    impl = init_like_flax(Implicit(num_patches=196, latent_dim=256), seed=1)
-    with torch.no_grad():
-        for name, prm in impl.named_parameters():  # non-zero biases
-            if name.endswith("bias"):
-                prm.add_(0.05 * torch.randn(prm.shape, generator=g))
-        # a random decoder's field is nearly flat across points (logit std
-        # ~0.1); a stronger point embedding makes the logits vary by more
-        # than bf16 noise, as a trained field does
-        impl.point_proj.proj.weight.mul_(8.0)
-        # the kernel's operands are bf16: the plain version gets the same
-        # bf16-valued weights (and caches, below), so the comparison measures
-        # the kernel's arithmetic rather than the rounding of its inputs
-        for prm in impl.parameters():
-            prm.copy_(prm.to(torch.bfloat16).float())
-    impl = impl.to(dev).eval()
-    P = 4096 * 125  # the fine pass of a vox-128, capacity-4096 hierarchical decode
-    latent = torch.randn(1, 197, 256, generator=g).to(dev)
-    points = (torch.rand(P, 3, generator=g) * 3.0 - 1.5).to(dev)
+    # bf16-valued weights, caches and points with logits that vary by more
+    # than bf16 noise; P: the fine pass of a vox-128, capacity-4096 decode
+    impl, caches, packed, points = k1_case(dev)
+    P = K1_POINTS
     coarse = coarse_lattice(128, device=dev)  # the coarse pass: 33^3 points
     with torch.inference_mode():
-        caches = [(k.bfloat16().float(), v.bfloat16().float()) for k, v in impl.encode(latent)]
-        packed = ik.pack_decoder_params(impl)
         err_coarse = agree(ik.fused_decode(impl, caches, coarse, packed),
                            impl.decode(caches, coarse[None])[0][0], "coarse lattice")
         dense = get_dense_3D_grid(128, device=dev)  # the dense decode: one launch
@@ -2296,6 +2287,111 @@ def chain_phase(log_dir=None):
     return {k: launches[k] for k in ("K1", "K2", "K3")}
 
 
+# phase 32: the keys each tool's last line must hold (beside "card"), and
+# the device time the trace's spans must hold
+TIMER_KEYS = {
+    "batch": ("rows",), "windows": ("rows",), "parts": ("fwd_loss_ms", "fwd_bwd_ms", "step_ms", "sync_every_step_ms",
+                                                         "sync_once_ms", "step_interpolate_ms", "step_separable_ms"),
+    "loader": ("img_s", "decode_numpy_png_img_s", "gap_median_ms", "gap_p95_ms", "step_ms"),
+    "midas": ("rows",), "depth": ("dead", "identical", "s_per_step", "runs"),
+    "components": ("encode_image_ms", "encode_latents_ms", "dense_decode_ms", "dense_sample_ms", "k1_launches"),
+    "hier_parts": ("select_ms", "gather_ms", "upsample_nearest_ms", "scatter_ms", "sigmoid_ms"),
+    "decode": ("dense_k1_ms", "hier_k1_ms", "hier_sign_agree", "dense_plain_ms", "hier_plain_ms", "tiles"),
+    "sampling": ("launch_floor_ms", "triangle_areas_slab8_ms", "cumsum_ms", "draw_slots_ms", "sample_from_tris_ms",
+                 "sample_surface_points_ms", "sample_surface_points_cells_ms"),
+    "k1_builds": ("builds",), "analyze_trace": ("device_busy_ms", "span_sum_ms", "span_share", "spans", "top"),
+}
+SPAN_SHARE = 0.95
+
+
+def timers_phase():
+    """Phase 32: every subcommand of ``time_train``, ``time_recon`` and
+    ``analyze_trace`` as a subprocess at cut sizes, in two lanes side by
+    side: the training timers at batch 8 with 2-3 repetitions, the loader
+    and the depth probe (2 runs of 150 steps) on a 2 + 1 object tree, the
+    reconstruction timers on the main path's model, ``k1_builds`` on the
+    shipped source against itself, and ``analyze_trace`` on a trace of 2
+    ``profile_train`` steps that the phase captures. Each tool's last line
+    must parse, hold its keys and only finite numbers; the midas medians
+    must agree bit for bit, each K1 build must pass its check, and the
+    trace's spans must hold at least 95% of its device busy time, each of
+    the step's four a part. Returns the launches (``ZS_LAUNCH_LOG``)."""
+    from zeroshape_tpu_torch import LAUNCH_LOG
+    from zeroshape_tpu_torch.ops import _build
+    from zeroshape_tpu_torch.ops import implicit_kernel as ik
+    from zeroshape_tpu_torch.timing import finite_numbers
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp()
+    launch_log = os.path.join(root, "launches.jsonl")
+    env = {LAUNCH_LOG: launch_log}
+    records = {}
+
+    def run(name, args, timeout=600):
+        lines, _, seconds = run_module(args, timeout, env)
+        try:
+            rec = json.loads(lines[-1])
+        except (IndexError, json.JSONDecodeError):
+            fail(f"{' '.join(args)}: no JSON last line: {lines[-5:]}")
+        missing = [k for k in TIMER_KEYS[name] if k not in rec]
+        numbers = finite_numbers({k: v for k, v in rec.items() if k != "card"})
+        if missing or not numbers or not np.isfinite(numbers).all() or not rec.get("card"):
+            fail(f"{' '.join(args)}: missing {missing} or a number not finite in {lines[-1][:2000]}")
+        records[name] = rec
+        print(f"{name} ({seconds:.1f} s): {lines[-1][:600]}")
+        return rec
+
+    def training_lane():
+        batch = run("batch", ["time_train", "batch", "8", "--task=shape", "--reps=2", "--warmup=2"])
+        run("loader", ["time_train", "loader", f"--data.root={data}", "--batch_size=4", "--epochs=2",
+                       f"--step_ms={batch['rows'][0]['ms_synced']}"])
+        run("windows", ["time_train", "windows", "--windows=2", "--K=3", "--batch_size=8"])
+        run("parts", ["time_train", "parts", "--batch_size=8", "--reps=2", "--K=2"])
+        trace = os.path.join(root, "train.pt.trace.json")
+        _, _, seconds = run_module(["profile_train", "--steps=2", f"--trace={trace}"], env=env)
+        print(f"profile_train: 2 traced shape_gen steps at batch 8 in {seconds:.1f} s")
+        summary = run("analyze_trace", ["analyze_trace", trace, "10"])
+        # the step's spans, each with the kernels launched anywhere inside it
+        # (AdamW's own span sits inside optimizer_step)
+        spans = {k: summary["spans_outer"].get(k, 0.0) for k in ("train_forward", "train_loss", "train_backward",
+                                                                 "optimizer_step")}
+        if summary["span_share"] < SPAN_SHARE or min(spans.values()) <= 0:
+            fail(f"analyze_trace: the spans hold {summary['span_sum_ms']:.3f} of {summary['device_busy_ms']:.3f} ms "
+                 f"of device time (below {SPAN_SHARE:.0%}) or a step span has none: {spans}")
+
+    def probe_and_recon_lane():
+        midas = run("midas", ["time_train", "midas", "8", "--reps=2"])
+        if not all(r["equal"] for r in midas["rows"]):
+            fail(f"midas: the bisection median and the sort median disagree: {midas['rows']}")
+        run("depth", ["time_train", "depth", f"--data.root={data}", "--repeats=2", "--steps=150"])
+        run("components", ["time_recon", "components", "--reps=2"])
+        run("hier_parts", ["time_recon", "hier_parts", "--reps=3"])
+        run("decode", ["time_recon", "decode", "--reps=2"])
+        run("sampling", ["time_recon", "sampling", "--reps=2"])
+        shipped = os.path.join(_build.CSRC, ik._SOURCE)
+        builds = run("k1_builds", ["time_recon", "k1_builds", shipped, shipped, "--reps=3", "--rounds=1"])
+        if len(builds["builds"]) != 2 or not all(b["ok"] for b in builds["builds"]):
+            fail(f"k1_builds: {builds['builds']}")
+
+    try:
+        data = os.path.join(root, "gen")
+        run_module(["generalize_e2e", "gen", data, "--n_objects=2", "--holdout_objects=1"], env=env)
+        # two lanes of subprocesses side by side to fit the script's time: the
+        # numbers are a smoke check here, each tool's own run measures alone
+        with ThreadPoolExecutor(2) as pool:
+            for lane in [pool.submit(training_lane), pool.submit(probe_and_recon_lane)]:
+                lane.result()  # a lane's fail() exits through here
+        counts = [json.loads(x) for x in open(launch_log)]
+        launches = {k: sum(c[k] for c in counts) for k in ("K1", "K2", "K3", "plain")}
+        print(f"timers phase launches over {len(counts)} processes: {launches}")
+        if launches["K1"] == 0:
+            fail(f"phase 32 never launched K1: {launches}")
+    finally:
+        shutil.rmtree(root)
+    print(f"phase 32 took {time.perf_counter() - t0:.1f} s")
+    return {k: launches[k] for k in ("K1", "K2", "K3")}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2401,6 +2497,7 @@ def main():
     dry_launches = dry_run()
     torch.cuda.empty_cache()
     chain_launches = chain_phase()
+    timer_launches = timers_phase()
 
     # launches: the sum over the path runs (main path, final and validation
     # posture, the validations of the training run, the gate and the staged
@@ -2408,10 +2505,10 @@ def main():
     # CLI on the tree and on the three layouts, the demo's fast path, the
     # encoders' reconstruction, evaluation and training validations, the
     # bench family's counted runs, the dry run's evaluation, the chain's
-    # subprocesses), each counted from 0
+    # subprocesses, the timers' subprocesses), each counted from 0
     launches = {k: (main_launches + demo_k1) * (k == "K1") + sum(
         n[k] for n in (final, val, train_val, gate_val, staged_val, cli_val, tree_eval, layout_eval, enc_launches,
-                       bench_launches, dry_launches, chain_launches))
+                       bench_launches, dry_launches, chain_launches, timer_launches))
         for k in ("K1", "K2", "K3")}
     k1["launches"] = launches["K1"]
     kernels = [k1]
@@ -2428,7 +2525,7 @@ def main():
     if min(launches.values()) == 0:
         fail(f"a kernel of the paths was never launched: {launches}")
 
-    print(f"chip_smoke: phases 1-31 took {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-32 took {time.perf_counter() - t_start:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "card_bound_ms", "library_ms"]
     print(json.dumps({"kernels": [{k: kern[k] for k in order} for kern in kernels]}))

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from __graft_entry__ import _full_opt, _tiny_opt
-from zeroshape_tpu_torch import bench, camera, config, demo, dist_check, graft_entry, mfu, recon
+from zeroshape_tpu_torch import (analyze_trace, bench, camera, config, demo, dist_check, graft_entry, mfu, recon,
+                                 time_recon, time_train)
 from zeroshape_tpu_torch import evaluate as evaluate_cli
 from zeroshape_tpu_torch.metrics import eval3d
 from zeroshape_tpu_torch.ops import render
@@ -34,7 +35,8 @@ def _port_modules():
 def test_importing_the_port_loads_no_jax():
     assert {"zeroshape_tpu_torch.models.rgb_enc", "zeroshape_tpu_torch.models.coord_enc", "zeroshape_tpu_torch.bench",
             "zeroshape_tpu_torch.mfu", "zeroshape_tpu_torch.graft_entry",
-            "zeroshape_tpu_torch.preprocess"} <= set(_port_modules())
+            "zeroshape_tpu_torch.preprocess", "zeroshape_tpu_torch.time_train", "zeroshape_tpu_torch.time_recon",
+            "zeroshape_tpu_torch.analyze_trace", "zeroshape_tpu_torch.timing"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -136,6 +138,13 @@ def test_port_sources_name_no_jax_package():
         lambda: mfu.main(["recon"]),
         lambda: graft_entry.entry(),
         lambda: graft_entry.dryrun_multichip(2),
+        lambda: time_train.main(["midas", "2"]),
+        lambda: time_train.main(["depth"]),
+        lambda: time_recon.main(["sampling"]),
+        lambda: time_recon.main(["k1_builds"]),
+        # a trace holds the card's work or says nothing: one without a kernel is refused
+        lambda: analyze_trace.summarize_device_ops([{"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0,
+                                                     "dur": 1}]),
     ],
 )
 def test_default_device_needs_cuda(entry, monkeypatch):

@@ -66,17 +66,27 @@ def _masked_median(x_flat, mask_flat):
     """Lower median of the masked elements of each row; 0 on an empty row.
 
     ``x_flat``, ``mask_flat``: ``[B, N]``. The value is the k-th smallest
-    masked element, k = (count - 1) // 2, taken with ``torch.kthvalue`` on
+    masked element, k = (count - 1) // 2, taken from a sort of
     order-preserving integer keys; it equals the JAX bisection over the same
     keys (losses.py:65-110) bit for bit. The gradient goes as there: to the
     mean of the masked elements equal to the median.
     """
+    return masked_median_by(x_flat, mask_flat, _kth_key_by_sort)
+
+
+def _kth_key_by_sort(key, k):
+    return torch.sort(key, dim=-1).values.gather(-1, k[:, None])[:, 0]
+
+
+def masked_median_by(x_flat, mask_flat, kth_key):
+    """:func:`_masked_median` with the k-th smallest order key of each row
+    found by ``kth_key(keys [B, N], k [B]) -> [B]`` (the unmasked elements'
+    keys are the largest)."""
     x32 = x_flat.float()
     key = torch.where(mask_flat, _order_keys(x32.detach()), 0xFFFFFFFF)  # unmasked sort last
     count = mask_flat.sum(dim=-1)
     k = torch.clamp((count - 1) // 2, min=0)
-    sorted_keys = torch.sort(key, dim=-1).values
-    med = _from_keys(sorted_keys.gather(-1, k[:, None])[:, 0])
+    med = _from_keys(kth_key(key, k))
     is_med = mask_flat & (x32 == med[:, None])
     n_med = torch.clamp(is_med.sum(dim=-1), min=1)
     med_grad = torch.where(is_med, x32, 0.0).sum(dim=-1) / n_med

@@ -114,6 +114,47 @@ def _select_active_cells(occ_c, margin, capacity):
     return ids[:capacity], top[:capacity] > float("-inf"), active.sum()
 
 
+def _fine_points(ids, g, nc, factor):
+    """The fine lattice of each selected cell: (factor+1)^3 points, sharing
+    the neighbours' boundary planes (duplicates write equal values).
+    ``ids [B, K]`` flat cell ids of an ``nc^3`` grid, ``g`` the fine axis.
+    Returns points ``[B, K * (factor+1)^3, 3]`` and their fine-grid indices
+    ``[B, K, (factor+1)^3, 3]``."""
+    f1 = factor + 1
+    off = torch.arange(f1, device=ids.device)
+    cell = torch.stack([ids // (nc * nc), (ids // nc) % nc, ids % nc], dim=-1)  # [B, K, 3]
+    fidx = cell[..., None, :] * factor + torch.stack(
+        torch.meshgrid(off, off, off, indexing="ij"), dim=-1
+    ).reshape(-1, 3)  # [B, K, f1^3, 3]
+    ax, ay, az = (g[cell[..., i, None] * factor + off] for i in range(3))  # [B, K, f1]
+    B, K = ax.shape[:2]
+    shape = (B, K, f1, f1, f1)
+    pts = torch.stack(
+        [
+            ax[:, :, :, None, None].expand(shape),
+            ay[:, :, None, :, None].expand(shape),
+            az[:, :, None, None, :].expand(shape),
+        ],
+        dim=-1,
+    ).reshape(B, K * f1**3, 3)
+    return pts, fidx
+
+
+def _scatter_fine(occ_c, fidx, valid, occ_f, factor):
+    """The level grid ``[B, S, S, S]``: the coarse grid ``occ_c [B, Sc, Sc,
+    Sc]`` upsampled (nearest), the valid cells' fine values ``occ_f [B,
+    K * (factor+1)^3]`` written over it at ``fidx``."""
+    B, K = fidx.shape[:2]
+    S = (occ_c.shape[1] - 1) * factor + 1
+    fill = torch.stack([_upsample_nearest(o, factor) for o in occ_c]).reshape(B, -1)
+    # padding cells write to one extra trailing slot, dropped afterwards
+    level = torch.cat([fill, fill.new_zeros(B, 1)], dim=1)
+    flat = ((fidx[..., 0] * S + fidx[..., 1]) * S + fidx[..., 2]).reshape(B, -1)
+    keep = valid[:, :, None].expand(B, K, fidx.shape[2]).reshape(B, -1)
+    level.scatter_(1, torch.where(keep, flat, S**3), occ_f.to(level.dtype))
+    return level[:, :-1].reshape(B, S, S, S)
+
+
 def occupancy_grid_hierarchical(
     decode_fn,
     vox_res,
@@ -154,34 +195,9 @@ def occupancy_grid_hierarchical(
     valid = torch.stack([s[1] for s in sel])
     n_active = torch.stack([s[2] for s in sel])
 
-    # fine lattice of each selected cell: (factor+1)^3 points, sharing the
-    # neighbours' boundary planes (duplicates write equal values)
-    f1 = factor + 1
-    off = torch.arange(f1, device=dev)
-    cell = torch.stack([ids // (nc * nc), (ids // nc) % nc, ids % nc], dim=-1)  # [B, K, 3]
-    fidx = cell[..., None, :] * factor + torch.stack(
-        torch.meshgrid(off, off, off, indexing="ij"), dim=-1
-    ).reshape(-1, 3)  # [B, K, f1^3, 3]
-    ax, ay, az = (g[cell[..., i, None] * factor + off] for i in range(3))  # [B, K, f1]
-    B, K = ax.shape[:2]
-    shape = (B, K, f1, f1, f1)
-    pts = torch.stack(
-        [
-            ax[:, :, :, None, None].expand(shape),
-            ay[:, :, None, :, None].expand(shape),
-            az[:, :, None, None, :].expand(shape),
-        ],
-        dim=-1,
-    ).reshape(B, K * f1**3, 3)
+    pts, fidx = _fine_points(ids, g, nc, factor)
     occ_f = torch.sigmoid(_decode_tiles(decode_fn, pts, tile_points))  # [B, K * f1^3]
-
-    fill = torch.stack([_upsample_nearest(o, factor) for o in occ_c]).reshape(B, -1)
-    # padding cells write to one extra trailing slot, dropped afterwards
-    level = torch.cat([fill, fill.new_zeros(B, 1)], dim=1)
-    flat = ((fidx[..., 0] * S + fidx[..., 1]) * S + fidx[..., 2]).reshape(B, -1)
-    keep = valid[:, :, None].expand(B, K, f1**3).reshape(B, -1)
-    level.scatter_(1, torch.where(keep, flat, S**3), occ_f.to(level.dtype))
-    level = level[:, :-1].reshape(B, S, S, S)
+    level = _scatter_fine(occ_c, fidx, valid, occ_f, factor)
     out = (level,)
     if return_stats:
         out = out + (n_active,)

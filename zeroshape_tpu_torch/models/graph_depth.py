@@ -47,11 +47,12 @@ class DepthGraph(nn.Module):
         )
 
     def forward(self, batch, train=False):
-        """``depth_pred [B, H, W, 1]``; with intrinsics also ``intr_pred [B, 3,
-        3]``, ``validity_mask [B, HW]``, ``seen_points_pred [B, HW, 3]`` and,
-        given ``depth_input_map``, ``seen_points_gt`` (graph_depth.py:44-70),
-        the geometry in fp32. ``train`` must match the module's mode (it
-        sets BatchNorm's)."""
+        """``depth_pred [B, H, W, 1]`` in the compute dtype (graph_depth.py:51:
+        the loss's alignment runs on it); with intrinsics also ``intr_pred
+        [B, 3, 3]``, ``validity_mask [B, HW]``, ``seen_points_pred [B, HW,
+        3]`` and, given ``depth_input_map``, ``seen_points_gt``
+        (graph_depth.py:44-70), the geometry in fp32. ``train`` must match
+        the module's mode (it sets BatchNorm's)."""
         if train != self.training:
             raise ValueError(f"forward(train={train}) on a module in {'train' if self.training else 'eval'} mode")
         rgb = batch["rgb_input_map"].permute(0, 3, 1, 2)
@@ -61,7 +62,7 @@ class DepthGraph(nn.Module):
         with compute_autocast(dev, self.dtype):
             depth_pred, intr_feat = self.dpt_depth(rgb)
             intr_params = self.intr_proj(self.intr_head(intr_feat)) if self.predict_intr else None
-        out = {"depth_pred": depth_pred.float().permute(0, 2, 3, 1)}
+        out = {"depth_pred": depth_pred.permute(0, 2, 3, 1)}
         if not self.predict_intr:
             return out
         with fp32_region(dev):

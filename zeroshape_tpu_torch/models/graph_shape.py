@@ -184,7 +184,8 @@ class ShapeGraph(nn.Module):
     def encode_image(self, batch, generator=None, dp_masks=None):
         """Image -> predictions dict (graph_shape.py:172-214).
 
-        Returns NHWC ``depth_pred [B, H, W, 1]``, ``intr_pred [B, 3, 3]``,
+        Returns NHWC ``depth_pred [B, H, W, 1]`` (in the compute dtype, as the
+        loss gets it in JAX), ``intr_pred [B, 3, 3]``,
         ``validity_mask [B, HW]``, ``seen_points [B, HW, 3]``,
         ``latent_depth [B, N, C]`` and ``latent_semantic`` (``[B, N, C]``,
         None without an RGB encoder). In training the transformer encoders'
@@ -204,7 +205,7 @@ class ShapeGraph(nn.Module):
                 out["latent_semantic"] = self.rgb_encoder(rgb)
             depth_pred, intr_feat = self.dpt_depth(rgb)
             intr_params = self.intr_proj(self.intr_head(intr_feat))
-        out["depth_pred"] = depth_pred.float().permute(0, 2, 3, 1)
+        out["depth_pred"] = depth_pred.permute(0, 2, 3, 1)
         with fp32_region(dev):
             out["intr_pred"] = intr_param2mtx(intr_params, self.H, self.W)
             validity_mask = (mask > 0.5).reshape(B, -1).float()
