@@ -55,7 +55,8 @@ Phases (one line or more each, any failure exits non-zero):
      both postures: final (dense decode through K1, exhaustive brute force
      through K2) and validation (coarse-to-fine decode, pruned brute force
      with K3 in the coarse stage and K2 in the exact one); kernel launches
-     against what the code implies; finite metrics; the three result files
+     against what the code implies (per batch of 2: final K1 1, K2 288;
+     validation K1 2, K3 72, K2 6); finite metrics; the three result files
      written and parsed back; seconds per sample;
  10. CUDA-event times of K2 and K3 at the exact and coarse shapes of 6 and 7
      (the kernels from a CUDA graph of 20 launches, so the host's launch cost
@@ -64,7 +65,8 @@ Phases (one line or more each, any failure exits non-zero):
      FLOP at the fp32 SIMT peak, and the card bound (the product at the
      tensor-core rate, one comparison a pair at the SIMT issue rate, the
      bytes), with the share of the card bound; K2's time per final-posture
-     sample (288 launches) beside that posture's seconds per sample;
+     sample (288 x 48 rows; 288 launches of 96 rows a batch of 2) beside
+     that posture's seconds per sample;
  11. training (``runtime/shape_engine.train``, the ``shape_gen`` recipe at
      full width, bf16 autocast) on ``data.analytic.train_samples(4, 8, 224)``:
      28 training and 4 validation views; 2 epochs of 3 steps at batch 8,
@@ -167,7 +169,7 @@ Phases (one line or more each, any failure exits non-zero):
      zeroshape_tpu_torch.bench`` (its last line the four keys of the JSON
      headline, value finite and positive, K1 2 launches a reconstruction,
      n_active <= 4096, beside phase 4's median), ``bench throughput 1 8``
-     (images/s, K1 2 B a call), ``bench ab 5`` (the K1 and plain-decode
+     (images/s, K1 2 a call: one launch a pass for the batch), ``bench ab 5`` (the K1 and plain-decode
      medians and each pair's ratio), ``mfu all`` (each row's FLOPs, seconds,
      TFLOP/s and share of the bf16 peak under 100%; the reconstruction's
      decoder count within 1% of ``mfu.decoder_flops``);
@@ -178,12 +180,12 @@ Phases (one line or more each, any failure exits non-zero):
  31. the two-stage chain at full width, cut in data and epochs
      (``chain_phase``): ``python -m zeroshape_tpu_torch.round5 run`` on a
      2 + 1 held-out object tree at 224^2 with one epoch of one step a
-     training, two stages at a time (depth, staged and scratch shape runs,
+     training, three stages at a time (depth, staged and scratch shape runs,
      both arms' evaluations, the exact brute force, ``measure_hier`` on both
-     arms, the random floor, ``calibrate_gate 2``), then ``check_fused_engine``
+     arms, the random floor, ``calibrate_gate 1``), then ``check_fused_engine``
      on the calibrated field and ``time_bf``: every stage exits 0, both arms'
-     checkpoints hold the shape graph's keys, the result files parse, each
-     gate seed below 0.11; one step leaves each arm a random field whose
+     checkpoints hold the shape graph's keys, the result files parse, the
+     gate's seed below 0.11; one step leaves each arm a random field whose
      every coarse cell is active at sharpen 1, so ``measure_hier`` is then
      run again on both arms' weights calibrated as in phase 21 and must
      report n_active <= 4096; the launches of these subprocesses
@@ -192,12 +194,30 @@ Phases (one line or more each, any failure exits non-zero):
      ``time_train`` (batch, windows, parts, loader, midas, the depth probe)
      and ``time_recon`` (components, hier_parts, decode, sampling,
      k1_builds on the shipped source against itself) as subprocesses at cut
-     sizes, two subprocesses at a time, and ``analyze_trace`` on 2 traced
-     ``profile_train`` steps: each
+     sizes (the depth probe 2 runs of 60 steps), three subprocesses at a
+     time, and ``analyze_trace`` on 2 traced ``profile_train`` steps: each
      last line parsed, its keys present and its numbers finite; the midas
      medians bit-equal, both K1 builds within their bounds, the trace's
      spans holding >= 95% of its device busy time; the launches join the
-     kernel line's sums.
+     kernel line's sums;
+ 33. the sample axis (run after phase 27, on the main path's model and
+     phase 9's samples): (a) K1 at B = 8 on 8 synthetic images' caches, at
+     the coarse (35,937) and fine (512,000 random) sizes, one
+     ``fused_decode_batched`` launch against 8 ``fused_decode`` launches:
+     each sample bit-equal, and no farther from the plain fp32 decode than
+     the plain decode in the compute dtype (max and per-sample mean); (b)
+     their CUDA-event times, packing included; (c) ``reconstruct_batch`` at
+     B = 8: K1 2 launches, nothing plain, the coarse-to-fine decode of the
+     batch's caches bit-equal to one sample at a time (whether the whole
+     batch equals 8 ``reconstruct`` runs, encoder included, is printed);
+     (d) ``brute_force_batch`` at B = 2 on two planted-rotation pairs
+     (torus, box): bit-equal to ``brute_force_search`` a sample, K3 72 and
+     K2 6 for the batch in the validation posture, K2 288 in the final one;
+     host-clock seconds of the batched and the per-sample search in turns;
+     (e) ``shape_engine.evaluate`` of phase 9's samples in both postures,
+     the batched code against the parent's per-sample loop in turns (loop,
+     batched, batched, loop): s/sample, launches (per batch against per
+     sample), the metrics equal in all four runs.
 Then the script's seconds, one JSON line of kernel numbers, the nvidia-smi line again, and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -460,7 +480,7 @@ def surface_clouds(dev, n=10000, n_rot=48, seed=12):
     pred = torch.as_tensor(analytic.surface_points(sdf, n, rng), device=dev)
     gt = torch.as_tensor(analytic.surface_points(sdf, n, rng), device=dev)
     R = get_rotation_sphere(24, 24, 12, device=dev)[::144][:n_rot]
-    return eval3d.normalize_pc(eval3d._rotate(R, pred)), eval3d.normalize_pc(gt[None]).expand(n_rot, -1, -1)
+    return eval3d.normalize_pc(pred @ R.transpose(1, 2)), eval3d.normalize_pc(gt[None]).expand(n_rot, -1, -1)
 
 
 def check_k2(x1, x2, what):
@@ -568,7 +588,7 @@ def planted_rotation(dev, k=1234):
     R = get_rotation_sphere(24, 24, 12, device=dev)
     pred = draw @ R[k]  # R_k^T applied to every point: rotation k undoes it
     with torch.inference_mode():
-        acc, comp = eval3d.chamfer_eval(eval3d.normalize_pc(eval3d._rotate(R[k : k + 1], pred)),
+        acc, comp = eval3d.chamfer_eval(eval3d.normalize_pc((pred @ R[k].T)[None]),
                                         eval3d.normalize_pc(gt[None]))
         cd_k = float((acc.mean() + comp.mean()) / 2)
         found = {}
@@ -1410,6 +1430,8 @@ def evaluate_tree(root, out):
     """Phase 20: the evaluate CLI with ``--resume`` of phase 19's run (its
     ``best.ckpt`` in ``out``, where the result files go too), final posture
     with brute force, at eval batch 2; result files parsed back."""
+    from zeroshape_tpu_torch import bench
+
     argv = ["--task=shape", f"--data.root={root}", f"--output_path={out}", "--resume", "--eval.brute_force",
             "--eval.batch_size=2"]
     res, n = evaluate_cli(argv, "the tree, --resume, final posture with brute force", 20)
@@ -1419,8 +1441,9 @@ def evaluate_tree(root, out):
         fail(f"cd_cat.txt rows {cats}")
     if sorted(cds) != list(range(20)) or max(abs(cds[i] - (res["acc"][i] + res["comp"][i]) / 2) for i in cds) > 6e-5:
         fail("the full results do not hold the returned metrics")
-    if n["K1"] != 20 or n["K2"] != 288 * 20 or n["K3"]:
-        fail(f"final posture launches {n}, expected K1 20, K2 {288 * 20}, K3 0")
+    want = bench.expected_launches(20, training=False)  # 10 batches of 2: K1 1 and K2 288 a batch
+    if any(n[k] != want[k] for k in ("K1", "K2", "K3")):
+        fail(f"final posture launches {n}, expected {want}")
     eval_dumps(out, "synthetic", res["idx"], "the evaluate CLI on the tree")
     return res, n
 
@@ -1501,6 +1524,8 @@ def evaluate_layouts(root, out):
     """Phase 21: the evaluate CLI on the Pix3D, OCRTOC and OmniObject3D trees
     with :func:`calibrated_checkpoint`'s weights, in the validation posture
     (coarse-to-fine decode, pruned brute force)."""
+    from zeroshape_tpu_torch import bench
+
     ckpt = calibrated_checkpoint(root, out)
     counts = []
     for dataset, extra, n in (("pix3d", ["--data.pix3d.cat=chair,table"], 2), ("ocrtoc", ["--data.ocrtoc.erode_mask=10"], 2),
@@ -1512,7 +1537,7 @@ def evaluate_layouts(root, out):
         _, n_launch = evaluate_cli(argv, f"{dataset} tree, validation posture", n)
         cds, cats = read_results(dump, dataset)
         eval_dumps(dump, dataset, sorted(cds), f"the {dataset} tree", meshes=True)
-        want = {"K1": 2 * n, "K2": 6 * n, "K3": 72 * n, "plain": 0}
+        want = bench.expected_launches(n, training=True)  # K1 2, K2 6, K3 72 a batch of 2
         if len(cds) != n or n_launch != want:
             fail(f"{dataset}: {len(cds)} result rows, launches {n_launch}, expected {want}")
         counts.append(n_launch)
@@ -2109,7 +2134,7 @@ def bench_family(main_median):
     sizes = json.loads(lines[-1])["sizes"]
     for B in (1, 8):
         r = sizes[str(B)]
-        if r["k1_per_call"] != 2 * B or not r["img_per_s"] > 0:
+        if r["k1_per_call"] != 2 or not r["img_per_s"] > 0:  # the coarse and the fine pass of the batch
             fail(f"bench throughput B={B}: {r}")
         launches["K1"] += int(r["k1_per_call"])
     print(f"bench throughput (subprocess, {seconds:.1f} s): " + "; ".join(
@@ -2172,8 +2197,9 @@ def chain_phase(log_dir=None):
     """Phase 31: the two-stage chain at full width, cut in data and epochs.
     ``generalize_e2e gen --n_objects=2 --holdout_objects=1`` at 224^2 (14
     training views, 10 test views) into a temporary directory; ``round5 run``
-    on it with ``--max_epoch=1 --freq.eval=1`` (one step an epoch at batch 8,
-    validated before and after), two stages at a time, into a temporary
+    on it with ``--max_epoch=1 --freq.eval=1 --gate_seeds=1`` (one step an
+    epoch at batch 8, validated before and after; the gate's first seed),
+    three stages at a time, into a temporary
     ``output_root`` (removed at the end); then ``check_fused_engine`` on the
     calibrated field and ``time_bf``. Each is a subprocess whose launches come
     back through ``ZS_LAUNCH_LOG``. Every stage must exit 0, both arms'
@@ -2200,7 +2226,7 @@ def chain_phase(log_dir=None):
               f"where the runs go")
         logs = log_dir or os.path.join(out, "round5")
         cmd = [sys.executable, "-m", "zeroshape_tpu_torch.round5", "run", f"--data.root={data}", f"--output_root={out}",
-               f"--log_dir={logs}", "--max_epoch=1", "--freq.eval=1", "--jobs=2", "--gate_seeds=2"]
+               f"--log_dir={logs}", "--max_epoch=1", "--freq.eval=1", "--jobs=3", "--gate_seeds=1"]
         t1 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=os.path.dirname(
             os.path.abspath(__file__)), env=dict(os.environ, **env))
@@ -2246,12 +2272,12 @@ def chain_phase(log_dir=None):
             fail(f"measure_hier on the calibrated arms: {cal_hier}")
         print(f"measure_hier ({seconds:.1f} s): the chain's one-step fields {hier}; calibrated {cal_hier}")
         seeds = res["gate"]["seeds"]
-        if len(seeds) != 2 or not all(c < GATE_CD_BOUND for c in seeds):
-            fail(f"calibrate_gate 2: seeds {seeds} (bound {GATE_CD_BOUND})")
+        if len(seeds) != 1 or not all(c < GATE_CD_BOUND for c in seeds):
+            fail(f"calibrate_gate 1: seeds {seeds} (bound {GATE_CD_BOUND})")
         for k in ("depth", "staged", "scratch"):
             if [e for e, _ in res[k]["curve"]] != [0, 1] or not np.isfinite([v for _, v in res[k]["curve"]]).all():
                 fail(f"chain {k} validations {res[k]}")
-        print(f"chain (round5 run, {chain_s:.1f} s, 2 jobs): depth l1_err {res['depth']['l1_err_epoch0']:.4f} -> "
+        print(f"chain (round5 run, {chain_s:.1f} s, 3 jobs): depth l1_err {res['depth']['l1_err_epoch0']:.4f} -> "
               f"{res['depth']['l1_err_best']:.4f}; val CD staged {res['staged']['cd_epoch0']:.4f} -> "
               f"{res['staged']['cd_best']:.4f}, scratch {res['scratch']['cd_epoch0']:.4f} -> "
               f"{res['scratch']['cd_best']:.4f}; evaluate CD staged {cds['eval_staged']:.4f} (seen "
@@ -2306,9 +2332,9 @@ SPAN_SHARE = 0.95
 
 def timers_phase():
     """Phase 32: every subcommand of ``time_train``, ``time_recon`` and
-    ``analyze_trace`` as a subprocess at cut sizes, in two lanes side by
+    ``analyze_trace`` as a subprocess at cut sizes, in three lanes side by
     side: the training timers at batch 8 with 2-3 repetitions, the loader
-    and the depth probe (2 runs of 150 steps) on a 2 + 1 object tree, the
+    and the depth probe (2 runs of 60 steps) on a 2 + 1 object tree, the
     reconstruction timers on the main path's model, ``k1_builds`` on the
     shipped source against itself, and ``analyze_trace`` on a trace of 2
     ``profile_train`` steps that the phase captures. Each tool's last line
@@ -2347,6 +2373,8 @@ def timers_phase():
                        f"--step_ms={batch['rows'][0]['ms_synced']}"])
         run("windows", ["time_train", "windows", "--windows=2", "--K=3", "--batch_size=8"])
         run("parts", ["time_train", "parts", "--batch_size=8", "--reps=2", "--K=2"])
+
+    def trace_lane():
         trace = os.path.join(root, "train.pt.trace.json")
         _, _, seconds = run_module(["profile_train", "--steps=2", f"--trace={trace}"], env=env)
         print(f"profile_train: 2 traced shape_gen steps at batch 8 in {seconds:.1f} s")
@@ -2358,16 +2386,16 @@ def timers_phase():
         if summary["span_share"] < SPAN_SHARE or min(spans.values()) <= 0:
             fail(f"analyze_trace: the spans hold {summary['span_sum_ms']:.3f} of {summary['device_busy_ms']:.3f} ms "
                  f"of device time (below {SPAN_SHARE:.0%}) or a step span has none: {spans}")
-
-    def probe_and_recon_lane():
         midas = run("midas", ["time_train", "midas", "8", "--reps=2"])
         if not all(r["equal"] for r in midas["rows"]):
             fail(f"midas: the bisection median and the sort median disagree: {midas['rows']}")
-        run("depth", ["time_train", "depth", f"--data.root={data}", "--repeats=2", "--steps=150"])
-        run("components", ["time_recon", "components", "--reps=2"])
         run("hier_parts", ["time_recon", "hier_parts", "--reps=3"])
-        run("decode", ["time_recon", "decode", "--reps=2"])
         run("sampling", ["time_recon", "sampling", "--reps=2"])
+
+    def probe_and_recon_lane():
+        run("depth", ["time_train", "depth", f"--data.root={data}", "--repeats=2", "--steps=60"])
+        run("components", ["time_recon", "components", "--reps=2"])
+        run("decode", ["time_recon", "decode", "--reps=2"])
         shipped = os.path.join(_build.CSRC, ik._SOURCE)
         builds = run("k1_builds", ["time_recon", "k1_builds", shipped, shipped, "--reps=3", "--rounds=1"])
         if len(builds["builds"]) != 2 or not all(b["ok"] for b in builds["builds"]):
@@ -2376,10 +2404,11 @@ def timers_phase():
     try:
         data = os.path.join(root, "gen")
         run_module(["generalize_e2e", "gen", data, "--n_objects=2", "--holdout_objects=1"], env=env)
-        # two lanes of subprocesses side by side to fit the script's time: the
-        # numbers are a smoke check here, each tool's own run measures alone
-        with ThreadPoolExecutor(2) as pool:
-            for lane in [pool.submit(training_lane), pool.submit(probe_and_recon_lane)]:
+        # three lanes of subprocesses side by side to fit the script's time:
+        # the numbers are a smoke check here, each tool's own run measures alone
+        lanes = (training_lane, trace_lane, probe_and_recon_lane)
+        with ThreadPoolExecutor(len(lanes)) as pool:
+            for lane in [pool.submit(fn) for fn in lanes]:
                 lane.result()  # a lane's fail() exits through here
         counts = [json.loads(x) for x in open(launch_log)]
         launches = {k: sum(c[k] for c in counts) for k in ("K1", "K2", "K3", "plain")}
@@ -2390,6 +2419,247 @@ def timers_phase():
         shutil.rmtree(root)
     print(f"phase 32 took {time.perf_counter() - t0:.1f} s")
     return {k: launches[k] for k in ("K1", "K2", "K3")}
+
+
+# ---------------------------------------------------------------------------
+# phase 33: the sample axis
+# ---------------------------------------------------------------------------
+
+AXIS_B = 8  # the batch of phase 33's K1 and reconstruction checks
+BF_B = 2  # the batch of its brute-force checks (the evaluation's eval batch)
+
+
+def k1_sample_axis(dev, model, caches, fine_points=512_000):
+    """Phase 33 (a), (b): K1 at B = ``AXIS_B`` on the main path's model
+    against one launch a sample, at the coarse and the fine pass's sizes:
+    bit-equal, and no farther from the plain fp32 decode than the plain
+    decode in the compute dtype (``check_fused_engine``'s rule: a calibrated
+    field's gain carries no absolute bound); CUDA-event times of the
+    per-sample loop (packing included) against the batched launch. Returns
+    nothing: each check fails the script itself."""
+    from zeroshape_tpu_torch.check_fused_engine import _fp32_twin
+    from zeroshape_tpu_torch.metrics.eval3d import coarse_lattice
+    from zeroshape_tpu_torch.ops import implicit_kernel as ik
+
+    B, impl, packed = AXIS_B, model.graph.impl_network, model.packed
+    g = torch.Generator(device=dev).manual_seed(33)
+    sizes = {"coarse lattice": coarse_lattice(128, device=dev).expand(B, -1, -1),
+             "fine pass": torch.rand(B, fine_points, 3, generator=g, device=dev) * 3.0 - 1.5}
+    exact = _fp32_twin(impl)
+
+    def one(b, cs=caches):
+        return [(k[b : b + 1], v[b : b + 1]) for k, v in cs]
+
+    L = caches[0][0].shape[2]
+    for what, pts in sizes.items():
+        P = pts.shape[1]
+        ik.fused_decode.launches = 0
+        got = ik.fused_decode_batched(impl, caches, pts, packed)
+        loop = torch.stack([ik.fused_decode(impl, one(b), pts[b], packed) for b in range(B)])
+        torch.cuda.synchronize()
+        if ik.fused_decode.launches != 1 + B:
+            fail(f"K1 at B={B} on the {what}: {ik.fused_decode.launches} launches, want 1 batched + {B} single")
+        same = [torch.equal(got[b], loop[b]) for b in range(B)]
+        e_k1, e_plain = [], []
+        for b in range(B):
+            ref = exact.decode([(k.float(), v.float()) for k, v in one(b)], pts[b : b + 1].float())[0][0].float()
+            e_k1.append((got[b] - ref).abs())
+            e_plain.append((impl.decode(one(b), pts[b : b + 1])[0][0].float() - ref).abs())
+        k1_max, plain_max = max(float(e.max()) for e in e_k1), max(float(e.max()) for e in e_plain)
+        k1_mean, plain_mean = [float(e.mean()) for e in e_k1], [float(e.mean()) for e in e_plain]
+        iters = 10 if P < 100_000 else 3
+        loop_ms = cuda_ms(lambda: [ik.fused_decode(impl, one(b), pts[b], packed) for b in range(B)], 1, iters)
+        batch_ms = cuda_ms(lambda: ik.fused_decode_batched(impl, caches, pts, packed), 1, iters)
+        b_ms, b_by, _, _ = k1_bound(B * P, L, packed)
+        print(f"sample axis (a), K1 at B={B} on the {what} (P={P} a sample, 8 images' caches of the main path's "
+              f"model): each sample bit-equal to its own launch {same}; from the plain fp32 decode max|d| "
+              f"{k1_max:.3e} (the plain {impl.dtype} decode {plain_max:.3e}), mean per sample "
+              f"{[f'{x:.2e}' for x in k1_mean]} (plain {[f'{x:.2e}' for x in plain_mean]})")
+        print(f"sample axis (b), K1 on the {what}: {B} single launches {loop_ms:.3f} ms, one batched launch "
+              f"{batch_ms:.3f} ms ({loop_ms / batch_ms:.2f}x); bound {b_ms:.3f} ms ({b_by}), "
+              f"{b_ms / batch_ms:.1%} of it batched (CUDA events, packing included, {iters} reps)")
+        if not all(same):
+            fail(f"K1's batched logits on the {what} differ from single-sample launches: {same}")
+        if k1_max > plain_max or any(a > b for a, b in zip(k1_mean, plain_mean)):
+            fail(f"K1 at B={B} on the {what} is farther from the fp32 decode than the plain decode")
+        del got, loop, e_k1, e_plain
+
+
+def recon_sample_axis(dev, model, caches, images):
+    """Phase 33 (c): ``reconstruct_batch`` at B = ``AXIS_B``: 2 K1 launches,
+    and the coarse-to-fine decode of the batch's caches bit-equal to the
+    same decode one sample at a time on those caches. Whether the whole
+    batch (encoder included) equals 8 runs of ``reconstruct`` is printed:
+    the encoder's kernels may be chosen by the batch size. Returns the
+    batch's launches."""
+    from zeroshape_tpu_torch import recon
+    from zeroshape_tpu_torch.metrics.eval3d import occupancy_grid_hierarchical, resolve_hier_capacity
+
+    B = AXIS_B
+    gens = [torch.Generator(device=dev).manual_seed(b) for b in range(B)]
+    reset_counts()
+    _, level, world, n_active = recon.reconstruct_batch(model, images, gens)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    tile = resolve_hier_capacity(recon.VOX_RES, recon.CAPACITY, recon.FACTOR) * (recon.FACTOR + 1) ** 3
+
+    def hier(cs, batch_size):
+        return occupancy_grid_hierarchical(
+            lambda p: model.sharpen * recon.decode_points(model, cs, p), recon.VOX_RES, recon.RANGE, batch_size,
+            recon.FACTOR, recon.CAPACITY, recon.MARGIN, tile_points=tile, device=dev)
+
+    together = hier(caches, B)
+    alone = torch.cat([hier([(k[b : b + 1], v[b : b + 1]) for k, v in caches], 1) for b in range(B)])
+    singles = torch.cat([recon.reconstruct(model, {k: v[b : b + 1] for k, v in images.items()}, gens[b],
+                                           return_level=True)[-1] for b in range(B)])
+    decode_same = [torch.equal(together[b], alone[b]) for b in range(B)]
+    share = float((singles == level).float().mean())
+    print(f"sample axis (c): reconstruct_batch at B={B}: launches {n}, n_active {n_active.tolist()}, world "
+          f"{tuple(world.shape)}; the coarse-to-fine decode of the batch's caches bit-equal to one sample at a "
+          f"time {decode_same}; the batch's level grids equal to reconstruct_batch's own "
+          f"{torch.equal(together, level)}; to {B} runs of reconstruct: {torch.equal(singles, level)} "
+          f"({share:.6f} of the voxels equal, max |d| {float((singles - level).abs().max()):.3e})")
+    if n["K1"] != 2 or n["plain"] or not torch.isfinite(world).all():
+        fail(f"reconstruct_batch at B={B} launched {n} (want K1 2, nothing plain) or gave non-finite points")
+    if not all(decode_same):
+        fail(f"the batched coarse-to-fine decode differs from one sample at a time: {decode_same}")
+    return n
+
+
+def planted_pairs(dev, B=BF_B, n=10000, seed=13):
+    """``B`` analytic cloud pairs, each its own shape: a GT cloud and an
+    independent draw of the same surface turned by the inverse of sphere
+    rotation ``1234 + 977 b``. Returns ``(pred [B, n, 3], gt [B, n, 3])``."""
+    from zeroshape_tpu_torch.camera import get_rotation_sphere
+    from zeroshape_tpu_torch.data import analytic
+
+    rng = np.random.default_rng(seed)
+    R = get_rotation_sphere(24, 24, 12, device=dev)
+    preds, gts = [], []
+    for b in range(B):
+        sdf, _ = analytic.make_sdf(("torus", "box", "capsule", "box_sphere")[b % 4], rng)
+        gts.append(torch.as_tensor(analytic.surface_points(sdf, n, rng), device=dev))
+        preds.append(torch.as_tensor(analytic.surface_points(sdf, n, rng), device=dev) @ R[1234 + 977 * b])
+    return torch.stack(preds), torch.stack(gts)
+
+
+def bf_sample_axis(dev):
+    """Phase 33 (d): ``brute_force_batch`` at B = ``BF_B`` in both postures:
+    each sample's result bit-equal to ``brute_force_search`` of it alone,
+    one K3 call a coarse chunk and one K2 call an exact chunk for the batch."""
+    from zeroshape_tpu_torch.metrics import eval3d
+
+    pred, gt = planted_pairs(dev)
+
+    def batched(prune):
+        return eval3d.brute_force_batch(pred, gt, prune=prune)
+
+    def loop(prune):
+        return [eval3d.brute_force_search(p, g, prune=prune) for p, g in zip(pred, gt)]
+
+    with torch.inference_mode():
+        for name, prune in (("validation", (1024, 128)), ("final", None)):
+            reset_counts()
+            res = batched(prune)
+            torch.cuda.synchronize()
+            n = launch_counts()
+            one = loop(prune)
+            seconds = {"batched": [], "loop": []}
+            for arm, fn in (("batched", batched), ("loop", loop), ("loop", loop), ("batched", batched)):
+                t0 = time.perf_counter()
+                fn(prune)
+                torch.cuda.synchronize()
+                seconds[arm].append(time.perf_counter() - t0)
+            same = {k: all(torch.equal(res[k][b], one[b][k]) for b in range(BF_B)) for k in res}
+            want = {"K2": 6, "K3": 72} if prune else {"K2": 288, "K3": 0}
+            cds = [round(float((res["acc"][b] + res["comp"][b]) / 2), 6) for b in range(BF_B)]
+            print(f"sample axis (d), brute force at B={BF_B}, {name} posture ({'pruned' if prune else 'exhaustive'}):"
+                  f" CDs {cds}; launches {n} for the batch; bit-equal to the per-sample search {same}; seconds "
+                  f"batched {[round(x, 4) for x in seconds['batched']]}, sample by sample "
+                  f"{[round(x, 4) for x in seconds['loop']]} (host clock, after one run of each, in turns)")
+            if {k: n[k] for k in want} != want or not all(same.values()):
+                fail(f"batched brute force, {name} posture: launches {n} (want {want}), bit-equal {same}")
+
+
+@contextlib.contextmanager
+def per_sample_loop():
+    """The parent's per-sample loop in this process: ``recon.decode_points``
+    launches K1 once a sample, ``eval3d.brute_force_batch`` searches one
+    sample at a time (each through the batch-of-one functions)."""
+    from zeroshape_tpu_torch import recon
+    from zeroshape_tpu_torch.metrics import eval3d
+
+    decode, search = recon.decode_points, eval3d.brute_force_batch
+
+    def decode_each(model, caches, pts):
+        return torch.cat([decode(model, [(k[b : b + 1], v[b : b + 1]) for k, v in caches], pts[b : b + 1])
+                          for b in range(pts.shape[0])])
+
+    def search_each(pc_pred, pc_gt, **kw):
+        res = [search(p[None], g[None], **kw) for p, g in zip(pc_pred, pc_gt)]
+        return {k: torch.cat([r[k] for r in res]) for k in res[0]}
+
+    decode_each.plain_decodes = 0
+    recon.decode_points, eval3d.brute_force_batch = decode_each, search_each
+    try:
+        yield
+    finally:
+        recon.decode_points, eval3d.brute_force_batch = decode, search
+
+
+def evaluate_sample_axis(model, samples):
+    """Phase 33 (e): ``shape_engine.evaluate`` of phase 9's samples at eval
+    batch 2 in both postures, the batched code against the parent's
+    per-sample loop in turns (loop, batched, batched, loop): seconds a
+    sample, launches, and the metrics equal. Returns the batched runs'
+    launches."""
+    from zeroshape_tpu_torch import bench
+
+    k, counted = len(samples), []
+    for training in (True, False):
+        name = "validation" if training else "final"
+        runs = {"loop": [], "batched": []}
+        for arm in ("loop", "batched", "batched", "loop"):
+            with tempfile.TemporaryDirectory() as tmp, (per_sample_loop() if arm == "loop" else contextlib.nullcontext()):
+                res, _, n, seconds = bench.evaluate_posture(model, samples, training, tmp)
+            runs[arm].append((res, n, seconds / k))
+        want = {"batched": bench.expected_launches(k, training),
+                "loop": bench.expected_launches(k, training, batch_size=1)}
+        for arm, rs in runs.items():
+            if any(n != want[arm] for _, n, _ in rs):
+                fail(f"evaluate, {name} posture, {arm}: launches {[n for _, n, _ in rs]}, want {want[arm]}")
+        ref = runs["loop"][0][0]
+        same = all(np.array_equal(r[key], ref[key]) for rs in runs.values() for r, _, _ in rs
+                   for key in ("acc", "comp", "f_score"))
+        print(f"sample axis (e), evaluate {name} posture, {k} samples at eval batch 2: s/sample loop "
+              f"{[round(s, 4) for _, _, s in runs['loop']]}, batched {[round(s, 4) for _, _, s in runs['batched']]} "
+              f"(loop/batched medians {np.median([s for *_, s in runs['loop']]) / np.median([s for *_, s in runs['batched']]):.3f}); "
+              f"launches loop {runs['loop'][0][1]}, batched {runs['batched'][0][1]}; metrics equal in all four runs {same}")
+        if not same:
+            fail(f"evaluate, {name} posture: the batched runs' metrics differ from the per-sample loop's")
+        counted += [n for _, n, _ in runs["batched"]]
+    return summed(counted)
+
+
+def sample_axis_phase(dev, model, samples):
+    """Phase 33, the sample axis; returns the launches of its reconstruction
+    and batched evaluations."""
+    from zeroshape_tpu_torch import recon
+    from zeroshape_tpu_torch.config import synthetic_image
+
+    t0 = time.perf_counter()
+    rgb, mask = synthetic_image(model.graph.H, seed=100, B=AXIS_B)
+    images = {"rgb_input_map": rgb, "mask_input_map": mask}
+    with torch.inference_mode():
+        caches = model.graph.encode_latents(model.graph.encode_image(recon._inputs(images, dev)))
+        k1_sample_axis(dev, model, caches)
+        rec = recon_sample_axis(dev, model, caches, images)
+        del caches
+    torch.cuda.empty_cache()
+    bf_sample_axis(dev)
+    ev = evaluate_sample_axis(model, samples)
+    print(f"phase 33 took {time.perf_counter() - t0:.1f} s")
+    return summed([rec, ev])
 
 
 def main():
@@ -2447,8 +2717,8 @@ def main():
     with torch.inference_mode():
         k2_times = time_chamfer(*exact, fast=False)
         k3_times = time_chamfer(*coarse, fast=True)
-    k2_sample = 288 * k2_times[0] / 1e3
-    print(f"final posture: K2 takes 288 x {k2_times[0]:.4f} ms = {k2_sample:.4f} s a sample of the posture's "
+    k2_sample = 288 * k2_times[0] / 1e3  # 288 launches a batch of 2, each 2 x 48 rows: 288 x 48 rows a sample
+    print(f"final posture: K2 takes 288 x {k2_times[0]:.4f} ms (48 rows) = {k2_sample:.4f} s a sample of the posture's "
           f"{final_s:.4f} s ({k2_sample / final_s:.1%}); the rest, {final_s - k2_sample:.4f} s, is K1's dense "
           f"decode, the encoder, the sampler and the search's host loop")
 
@@ -2486,6 +2756,7 @@ def main():
         shutil.rmtree(root)
         shutil.rmtree(out)
     demo_k1 = demo_cli(dev)
+    axis_launches = sample_axis_phase(dev, model, samples)
     del model
     torch.cuda.empty_cache()
     enc_launches = encoders_phase(dev, main_median, samples, data)
@@ -2505,10 +2776,11 @@ def main():
     # CLI on the tree and on the three layouts, the demo's fast path, the
     # encoders' reconstruction, evaluation and training validations, the
     # bench family's counted runs, the dry run's evaluation, the chain's
-    # subprocesses, the timers' subprocesses), each counted from 0
+    # subprocesses, the timers' subprocesses, phase 33's reconstruction and
+    # batched evaluations), each counted from 0
     launches = {k: (main_launches + demo_k1) * (k == "K1") + sum(
         n[k] for n in (final, val, train_val, gate_val, staged_val, cli_val, tree_eval, layout_eval, enc_launches,
-                       bench_launches, dry_launches, chain_launches, timer_launches))
+                       bench_launches, dry_launches, chain_launches, timer_launches, axis_launches))
         for k in ("K1", "K2", "K3")}
     k1["launches"] = launches["K1"]
     kernels = [k1]
@@ -2525,7 +2797,7 @@ def main():
     if min(launches.values()) == 0:
         fail(f"a kernel of the paths was never launched: {launches}")
 
-    print(f"chip_smoke: phases 1-32 took {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-33 took {time.perf_counter() - t_start:.1f} s")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "card_bound_ms", "library_ms"]
     print(json.dumps({"kernels": [{k: kern[k] for k in order} for kern in kernels]}))

@@ -97,6 +97,28 @@ def test_kernel_is_deterministic_and_row_independent():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_points", [1, 300])
+def test_batched_kernel_equals_single_launches(n_points):
+    """One launch of K1 for 3 samples, each with its own caches and points,
+    gives each sample's logits bit for bit as a launch of that sample alone
+    (a point's logit does not depend on the work item it lands in)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    impl, _, packed, g = _decoder(3)
+    with torch.no_grad():
+        latent = torch.randn(3, 197, 256, generator=g).cuda()
+        caches = [(_bf(k), _bf(v)) for k, v in impl.encode(latent)]
+        pts = (torch.rand(3, n_points, 3, generator=g) * 3 - 1.5).cuda()
+        before = ik.fused_decode.launches
+        batched = ik.fused_decode_batched(impl, caches, pts, packed)
+        assert ik.fused_decode.launches == before + 1
+        for b in range(3):
+            one = ik.fused_decode(impl, [(k[b : b + 1], v[b : b + 1]) for k, v in caches], pts[b], packed)
+            assert torch.equal(batched[b], one), b
+    assert tuple(batched.shape) == (3, n_points) and torch.isfinite(batched).all()
+
+
+@pytest.mark.gpu
 def test_dense_sampler_repeats_on_the_card():
     """One seed draws the same surface points twice: the area CDF is summed
     in a fixed order (torch.cumsum of a 1-D CUDA tensor is not)."""
@@ -193,8 +215,8 @@ def test_tiny_decoder_reconstructs_and_evaluates_on_the_card(tmp_path):
 
 @pytest.mark.gpu
 def test_shipped_decoder_decodes_through_the_kernel_only():
-    """The shipped decoder packs, and every decode launches K1 once a sample,
-    never the plain decode."""
+    """The shipped decoder packs, and every decode launches K1 once for the
+    whole batch, never the plain decode."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from zeroshape_tpu_torch.recon import decode_points
@@ -209,7 +231,7 @@ def test_shipped_decoder_decodes_through_the_kernel_only():
         want = impl.decode(caches, pts[1:])[0][0]
     torch.cuda.synchronize()
     k1, _, plain = (a - b for a, b in zip(_counts(), before))
-    assert (k1, plain) == (2, 0)
+    assert (k1, plain) == (1, 0)  # one launch for the batch of 2
     np.testing.assert_allclose(got[1].cpu().numpy(), want.cpu().numpy(), rtol=8e-2, atol=2e-2)
 
 

@@ -154,7 +154,7 @@ def emulate_kernel(packed, caches, pts, heads=8, hd=32):
     """The kernel's arithmetic on its packed operands, in PyTorch: bf16 matrix
     operands with fp32 accumulation, fp32 LayerNorm / softmax / residual.
     The operands are read back from the packed tile layouts."""
-    k, v = (x.float() for x in ik.unpack_caches(*ik.pack_caches(caches)))
+    k, v = (x[0].float() for x in ik.unpack_caches(*ik.pack_caches(caches)))  # the one sample's blocks
     packed = ik.unpack_decoder_params(packed)
 
     def w(name, *idx):
@@ -237,7 +237,7 @@ def test_packed_layout_round_trips_exactly_at_full_width():
         caches = [tuple(torch.randn(1, 8, L, 32, generator=g) for _ in range(2)) for _ in range(2)]
         flat, n = ik.pack_caches(caches)
         assert n == L and flat.numel() == 2 * 8 * 32 * (ik.MAX_LATENT + ik.V_KEYS)
-        k, v = ik.unpack_caches(flat, L)
+        k, v = (x[0] for x in ik.unpack_caches(flat, L))  # [B, NB, H, L, hd] of the one sample
         for blk, (kk, vv) in enumerate(caches):
             assert torch.equal(k[blk], kk[0].to(torch.bfloat16))
             assert torch.equal(v[blk], vv[0].to(torch.bfloat16))

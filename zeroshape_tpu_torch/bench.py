@@ -200,7 +200,8 @@ def latency(seed=0):
 def throughput(sizes=(1, 8)):
     """Images/s of ``recon.reconstruct_batch`` (coarse-to-fine, vox 128, 10k
     points an image) on B copies of the sample, ``BENCH_REPS`` (7) reps a
-    size; K1 must launch 2 B times a call."""
+    size; K1 must launch twice a call (the coarse and the fine pass of the
+    whole batch)."""
     dev = resolve_device(None)
     _, model, one = build(device=dev)
     reps = int(os.environ.get("BENCH_REPS", "7"))
@@ -215,8 +216,8 @@ def throughput(sizes=(1, 8)):
         reset_counts()
         times = host_seconds(lambda: recon.reconstruct_batch(model, batch, gens), reps)
         k1 = launch_counts()["K1"] / reps
-        if k1 != 2 * B:
-            raise RuntimeError(f"B={B}: K1 launched {k1} times a call, expected {2 * B}")
+        if k1 != 2:
+            raise RuntimeError(f"B={B}: K1 launched {k1} times a call, expected 2")
         med = float(np.median(times))
         results[B] = {"s_per_batch": med, "img_per_s": B / med, "k1_per_call": k1}
         print(f"B={B}: median {med * 1e3:.1f} ms/batch = {med / B * 1e3:.1f} ms/image = {B / med:.1f} img/s "
@@ -271,26 +272,30 @@ def ab(reps=8):
     return out
 
 
-def expected_launches(n_samples, training):
+EVAL_BATCH = 2  # the eval batch size of evaluate_posture
+
+
+def expected_launches(n_samples, training, batch_size=EVAL_BATCH):
     """The launches ``shape_engine.evaluate`` of the shipped decoder implies
-    with brute force: final posture K1 1 (the dense grid) and K2 288 (the
-    exhaustive search) a sample; validation K1 2 (coarse-to-fine), K3 72 and
-    K2 6 (the pruned search) a sample; never a plain decode."""
-    k = n_samples
+    with brute force on ``n_samples`` in batches of ``batch_size`` (the
+    loader pads the last): final posture K1 1 (the dense grid) and K2 288
+    (the exhaustive search) a batch; validation K1 2 (coarse-to-fine), K3 72
+    and K2 6 (the pruned search) a batch; never a plain decode."""
+    k = -(-n_samples // batch_size)
     if training:
         return {"K1": 2 * k, "K2": 6 * k, "K3": 72 * k, "plain": 0}
     return {"K1": k, "K2": 288 * k, "K3": 0, "plain": 0}
 
 
 def evaluate_posture(model, samples, training, output_path):
-    """One ``shape_engine.evaluate`` of ``samples`` at vox 128, eval batch 2,
+    """One ``shape_engine.evaluate`` of ``samples`` at vox 128, eval batch 2 (:data:`EVAL_BATCH`),
     brute force on, in the validation (``training``) or final posture, its
     files in ``output_path``. Returns ``(result, opt, launches, seconds)``:
     the launches counted from 0, the host-clock seconds ending in a sync."""
     from zeroshape_tpu_torch.config import eval_opt, full_opt
     from zeroshape_tpu_torch.runtime import shape_engine
 
-    opt = eval_opt(full_opt(), vox_res=recon.VOX_RES, brute_force=True, batch_size=2)
+    opt = eval_opt(full_opt(), vox_res=recon.VOX_RES, brute_force=True, batch_size=EVAL_BATCH)
     reset_counts()
     t0 = time.perf_counter()
     res = shape_engine.evaluate(model, samples, opt, output_path, ["prim"], training=training, device=model.device)

@@ -1,7 +1,8 @@
-"""Camera geometry in fp32 (counterpart of ``zeroshape_tpu/camera.py:69-243``).
+"""Camera geometry in fp32 (counterpart of ``zeroshape_tpu/camera.py``).
 
-Points are ``[..., N, 3]``, intrinsics ``[..., 3, 3]``. The pixel grid is
-integer pixel coordinates (x, y, 1) with no half-pixel offset.
+Points are ``[..., N, 3]``, poses ``[..., 3, 4]`` (R | t), intrinsics
+``[..., 3, 3]``. The pixel grid is integer pixel coordinates (x, y, 1) with
+no half-pixel offset.
 """
 
 from __future__ import annotations
@@ -10,6 +11,73 @@ import numpy as np
 import torch
 
 from zeroshape_tpu_torch import resolve_device
+
+
+# ---------------------------------------------------------------------------
+# pose utilities (camera.py:25-66; the reference's utils/camera.py Pose)
+# ---------------------------------------------------------------------------
+
+
+def pose_from(R=None, t=None):
+    """A ``[..., 3, 4]`` pose from ``R [..., 3, 3]`` and/or ``t [..., 3]``:
+    the identity rotation where ``R`` is None, a zero translation where
+    ``t`` is."""
+    if R is None and t is None:
+        raise ValueError("need R or t")
+    if R is None:
+        t = torch.as_tensor(t, dtype=torch.float32)
+        R = torch.eye(3, dtype=torch.float32, device=t.device).expand(*t.shape[:-1], 3, 3)
+    elif t is None:
+        R = torch.as_tensor(R, dtype=torch.float32)
+        t = torch.zeros(R.shape[:-1], dtype=torch.float32, device=R.device)
+    else:
+        R, t = torch.as_tensor(R, dtype=torch.float32), torch.as_tensor(t, dtype=torch.float32)
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
+def pose_invert(pose):
+    """The inverse of a rigid ``[..., 3, 4]`` pose (R orthonormal): ``(R^T | -R^T t)``."""
+    R, t = pose[..., :3], pose[..., 3:]
+    R_inv = R.transpose(-1, -2)
+    return pose_from(R=R_inv, t=(-R_inv @ t)[..., 0])
+
+
+def pose_compose_pair(pose_a, pose_b):
+    """The pose x -> pose_b(pose_a(x))."""
+    R_a, t_a = pose_a[..., :3], pose_a[..., 3:]
+    R_b, t_b = pose_b[..., :3], pose_b[..., 3:]
+    return pose_from(R=R_b @ R_a, t=(R_b @ t_a + t_b)[..., 0])
+
+
+def pose_compose(pose_list):
+    """The poses of ``pose_list`` applied in order (the first innermost)."""
+    pose_new = pose_list[0]
+    for p in pose_list[1:]:
+        pose_new = pose_compose_pair(pose_new, p)
+    return pose_new
+
+
+def to_hom(X):
+    """``[..., 3]`` -> homogeneous ``[..., 4]`` (a trailing 1)."""
+    return torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
+
+
+def world2cam(X_world, pose):
+    """World points ``[B, N, 3]`` into the frame of ``pose [B, 3, 4]``."""
+    return to_hom(X_world) @ pose.transpose(-1, -2)
+
+
+def proj_points(points, intr, pose):
+    """World points ``[B, N, 3]`` -> (pixel coordinates ``[B, N, 2]``, camera
+    depth ``[B, N]``) through ``pose [B, 3, 4]`` and ``intr [B, 3, 3]``."""
+    points_cam = world2cam(points, pose)
+    points_img = cam2img(points_cam, intr)
+    return points_img[..., :2] / points_img[..., 2:], points_cam[..., 2]
+
+
+# ---------------------------------------------------------------------------
+# the visible surface, unprojection (camera.py:69-154)
+# ---------------------------------------------------------------------------
 
 
 def valid_norm_fac(seen_points, mask, eps=0.0):

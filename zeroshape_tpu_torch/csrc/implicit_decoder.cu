@@ -80,6 +80,13 @@
 //    both consume the same tile stream and can drift apart by the ring's
 //    depth. Within a warpgroup the next tile's wgmmas are issued before the
 //    previous tile's are waited on.
+//  * Sample axis (zs_implicit_decode_batched, the counterpart of the JAX
+//    fused_decode_batched). A launch takes B samples of P points, each with
+//    its own packed caches; the persistent loop walks B x ntiles work items
+//    (sample = item / ntiles), the producer streams the item's sample's K/V
+//    tiles and the consumers offset the item's points and logits by
+//    sample x P. The weights are shared, so a batch costs one launch and
+//    one grid fill instead of B.
 //  * Profiling. Built with -DZS_PROFILE (profile_k1.py), the first thread of
 //    each consumer warpgroup adds the cycles of each phase to a counter.
 //
@@ -126,6 +133,7 @@ constexpr int K_TILE = MAX_LP * HD * 2;       // K^T of one head: 32 K rows x 20
 constexpr int V_TILE = V_KEYS * HD * 2;       // V of one head: 224 K rows x 32
 constexpr int W_TILE = 16384;                 // proj, fc1, fc2, skip MLP tiles
 constexpr int CACHE_HEAD = K_TILE + V_TILE;
+constexpr int CACHE_BYTES = NB * NH * CACHE_HEAD;  // one sample's packed K/V tiles
 
 constexpr int NSTAGE = 6;
 constexpr int STAGE = 16384;
@@ -162,7 +170,7 @@ __device__ unsigned long long zs_prof[24];
 // same struct with ctypes; field order must match).
 struct DecoderParams {
   const bf16* stream;    // weight tiles in consumption order (4,587,520 bytes)
-  const bf16* caches;    // K/V tiles [NB][NH]{K tile, V tile}
+  const bf16* caches;    // K/V tiles [B][NB][NH]{K tile, V tile}, one block a sample
   const bf16* point_w;   // [3][C]
   const float* point_b;  // [C]
   const float* ln1;      // [NB][2][C] (scale, bias)
@@ -716,15 +724,17 @@ struct Producer {
   }
 };
 
-__device__ __forceinline__ void produce(const DecoderParams& prm, int ntiles) {
+__device__ __forceinline__ void produce(const DecoderParams& prm, int ntiles, int nitems) {
   Producer pr;
   pr.base = (smem_u32(smem_raw) + 1023) & ~1023u;
   pr.bars = pr.base + OFF_BAR;
   pr.stage = 0;
   pr.phase = 0;
-  const unsigned char* caches = reinterpret_cast<const unsigned char*>(prm.caches);
 #pragma unroll 1
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  for (int item = blockIdx.x; item < nitems; item += gridDim.x) {
+    // work item = sample x tile: the sample's own K/V tiles, the shared weights
+    const unsigned char* caches =
+        reinterpret_cast<const unsigned char*>(prm.caches) + (size_t)(item / ntiles) * CACHE_BYTES;
     const unsigned char* w = reinterpret_cast<const unsigned char*>(prm.stream);
 #pragma unroll 1
     for (int blk = 0; blk < NB; ++blk) {
@@ -755,7 +765,8 @@ __device__ __forceinline__ void produce(const DecoderParams& prm, int ntiles) {
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void consume(const DecoderParams& prm, const float* __restrict__ pts,
-                                        float* __restrict__ out, int P, int L, float2* scratch, int ntiles) {
+                                        float* __restrict__ out, int P, int L, float2* scratch, int ntiles,
+                                        int nitems) {
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
@@ -774,15 +785,18 @@ __device__ __forceinline__ void consume(const DecoderParams& prm, const float* _
   PROF_INIT();
 
 #pragma unroll 1
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int row0 = tile * TILE_P + wg * ROWS;
+  for (int item = blockIdx.x; item < nitems; item += gridDim.x) {
+    // work item = sample x tile; a sample's points and logits start at sample x P
+    const int sample = item / ntiles;
+    const size_t soff = (size_t)sample * P;
+    const int row0 = (item - sample * ntiles) * TILE_P + wg * ROWS;
 
     // point embedding: the residual lives in R, an N = 256 accumulator
     float R[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) R[i] = 0.0f;
     add_bias(R, prm.point_b + c2);
-    add_point_rows(R, pts, P, row0 + ra, prm.point_w + c2);
+    add_point_rows(R, pts + soff * 3, P, row0 + ra, prm.point_w + c2);
     PROF(0);
 
 #pragma unroll 1
@@ -954,7 +968,7 @@ __device__ __forceinline__ void consume(const DecoderParams& prm, const float* _
       // rows [state | trunk] for skips (abuf, then obuf); the trunk alone for l = 0
       gemm_ss<256, 2, 0>(R, l == 0 ? obuf : abuf, obuf, skip ? 2 * C / 32 : C / 32, ring, false);
       PROF(16);
-      if (prm.mlp_wp[l] != nullptr) add_point_rows(R, pts, P, row0 + ra, prm.mlp_wp[l] + c2);
+      if (prm.mlp_wp[l] != nullptr) add_point_rows(R, pts + soff * 3, P, row0 + ra, prm.mlp_wp[l] + c2);
       PROF(17);
       const float s = skip ? 0.70710678118654752f : 1.0f;  // concat / sqrt(2)
       const float* b = prm.mlp_b[l] + c2;
@@ -992,15 +1006,15 @@ __device__ __forceinline__ void consume(const DecoderParams& prm, const float* _
     logit1 = quad_sum(logit1) + prm.mlp_b[NLIN - 1][0];
     PROF(20);
     if (t == 0) {
-      if (row0 + ra < P) out[row0 + ra] = logit0;
-      if (row0 + ra + 8 < P) out[row0 + ra + 8] = logit1;
+      if (row0 + ra < P) out[soff + row0 + ra] = logit0;
+      if (row0 + ra + 8 < P) out[soff + row0 + ra + 8] = logit1;
     }
   }
 }
 
 __global__ void __launch_bounds__(NTHREAD, 1)
     implicit_decoder_kernel(const __grid_constant__ DecoderParams prm, const float* __restrict__ pts,
-                            float* __restrict__ out, int P, int L, float2* scratch, int ntiles) {
+                            float* __restrict__ out, int P, int L, float2* scratch, int ntiles, int nitems) {
   const uint32_t bars = ((smem_u32(smem_raw) + 1023) & ~1023u) + OFF_BAR;
   if (threadIdx.x == 0) {
     for (int s = 0; s < NSTAGE; ++s) {
@@ -1013,19 +1027,15 @@ __global__ void __launch_bounds__(NTHREAD, 1)
   if (threadIdx.x >= NCONS * 128) {
     // the producer warpgroup hands its registers to the consumers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == NCONS * 128) produce(prm, ntiles);
+    if (threadIdx.x == NCONS * 128) produce(prm, ntiles, nitems);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    consume(prm, pts, out, P, L, scratch, ntiles);
+    consume(prm, pts, out, P, L, scratch, ntiles, nitems);
   }
 }
 
 }  // namespace
 
-// Logits for P points (pts [P][3] fp32 -> out [P] fp32) against packed caches
-// of L <= 208 latent keys. `scratch` holds n_slots * 2 * 64 * 256 floats (the
-// parked residuals; the grid has at most n_slots blocks). Launches on
-// `stream`; returns the launch's cudaError_t (0 = success).
 #ifdef ZS_PROFILE
 // The phase counters of a -DZS_PROFILE build (profile_k1.py): cycles summed
 // over the first thread of every consumer warpgroup, one slot per phase.
@@ -1038,17 +1048,32 @@ extern "C" int zs_prof_reset() {
 }
 #endif
 
-extern "C" int zs_implicit_decode(const DecoderParams* prm, const float* pts, float* out, int P, int L,
-                                  float* scratch, int n_slots, void* stream) {
-  if (L < 1 || L > MAX_LP || n_slots < 1) return (int)cudaErrorInvalidValue;
-  if (P <= 0) return 0;
+// Logits for B samples of P points each (pts [B][P][3] fp32 -> out [B][P]
+// fp32), sample b against its own packed caches (prm->caches holds B blocks
+// of CACHE_BYTES) of L <= 208 latent keys. The persistent grid walks B x
+// ntiles work items; a point's logit does not depend on the item it lands
+// in, so each sample's logits equal those of a launch of that sample alone.
+// `scratch` holds n_slots * 2 * 64 * 256 floats (the parked residuals; the
+// grid has at most n_slots blocks). Launches on `stream`; returns the
+// launch's cudaError_t (0 = success).
+extern "C" int zs_implicit_decode_batched(const DecoderParams* prm, const float* pts, float* out, int B, int P,
+                                          int L, float* scratch, int n_slots, void* stream) {
+  if (L < 1 || L > MAX_LP || n_slots < 1 || B < 0) return (int)cudaErrorInvalidValue;
+  if (P <= 0 || B == 0) return 0;
+  const long long ntiles = (P + TILE_P - 1) / TILE_P, nitems = ntiles * B;
+  if (nitems > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(implicit_decoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const int ntiles = (P + TILE_P - 1) / TILE_P;
-  const int grid = ntiles < n_slots ? ntiles : n_slots;
+  const int grid = nitems < n_slots ? (int)nitems : n_slots;
   implicit_decoder_kernel<<<grid, NTHREAD, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      *prm, pts, out, P, L, reinterpret_cast<float2*>(scratch), ntiles);
+      *prm, pts, out, P, L, reinterpret_cast<float2*>(scratch), (int)ntiles, (int)nitems);
   return (int)cudaGetLastError();
+}
+
+// One sample: the B = 1 case (pts [P][3] -> out [P]).
+extern "C" int zs_implicit_decode(const DecoderParams* prm, const float* pts, float* out, int P, int L,
+                                  float* scratch, int n_slots, void* stream) {
+  return zs_implicit_decode_batched(prm, pts, out, 1, P, L, scratch, n_slots, stream);
 }
 

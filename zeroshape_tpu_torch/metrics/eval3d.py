@@ -7,9 +7,10 @@ confidently on one side of 0.5, decodes those cells at full resolution,
 and fills the rest from the owning cell's nearest coarse corner.
 
 Scoring (``eval3d.py:348-548``): :func:`chamfer_eval` and
-:func:`compute_fscore` on normalised clouds, :func:`brute_force_search`
+:func:`compute_fscore` on normalised clouds, :func:`brute_force_batch`
 (the reference's best-of-6912-rotations alignment, exhaustive or pruned
-coarse-to-fine), :func:`icp` and :func:`transform_gt_to_view`. The nearest
+coarse-to-fine, for a batch in each kernel call; :func:`brute_force_search`
+is its one-sample case), :func:`icp` and :func:`transform_gt_to_view`. The nearest
 neighbours come from the K2/K3 kernels of ``ops/chamfer.py``.
 """
 
@@ -50,15 +51,17 @@ def occupancy_grid(decode_fn, points, batch_size, tile_points=16641):
 
 
 def _upsample_nearest(level_c, factor):
-    """``[Sc, Sc, Sc]`` -> ``[(Sc-1)*factor+1]^3`` nearest-lower-corner upsample.
+    """``[..., Sc, Sc, Sc]`` -> ``[..., S, S, S]``, S = (Sc-1)*factor+1:
+    nearest-lower-corner upsample of each grid of the batch at once (the
+    JAX ``vmap``, eval3d.py:264-265).
 
     Fine index i takes coarse corner ``min(i // factor, Sc - 2)``: the owning
     cell's lower corner, and on the far boundary plane the last cell's near
     corner (the edge pad of eval3d.py:79-92).
     """
-    n = level_c.shape[0] - 1
+    n = level_c.shape[-1] - 1
     idx = torch.clamp(torch.arange(n * factor + 1, device=level_c.device) // factor, max=n - 1)
-    return level_c[idx][:, idx][:, :, idx]
+    return level_c[..., idx, :, :][..., idx, :][..., idx]
 
 
 def resolve_hier_capacity(vox_res, capacity=None, factor=4):
@@ -92,26 +95,28 @@ def coarse_lattice(vox_res, rng=(-1.5, 1.5), factor=4, device=None):
 
 
 def _select_active_cells(occ_c, margin, capacity):
-    """Coarse cells that may contain the isosurface (eval3d.py:135-169).
+    """Coarse cells that may contain the isosurface (eval3d.py:135-169), for
+    each coarse grid ``occ_c [..., Sc, Sc, Sc]`` of a batch at once (the JAX
+    ``vmap``, eval3d.py:225-227) or for one grid.
 
     Active: the 8 corners are not all confidently on one side of 0.5.
     Overflow ranking: straddling cells first, then the cell whose closest
-    corner is nearest 0.5, then the lower cell id.
+    corner is nearest 0.5, then the lower cell id. Every step is exact
+    (comparisons and a sort), so a grid's cells do not depend on the batch.
 
-    Returns (flat cell ids [capacity], valid [capacity], n_active []).
+    Returns (flat cell ids [..., capacity], valid [..., capacity], n_active [...]).
     """
-    n = occ_c.shape[0] - 1
-    corners = torch.stack(
-        [occ_c[dx : dx + n, dy : dy + n, dz : dz + n] for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
-    )
+    n = occ_c.shape[-1] - 1
+    corners = torch.stack([occ_c[..., dx : dx + n, dy : dy + n, dz : dz + n]
+                           for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)])
     cmin, cmax = corners.min(dim=0).values, corners.max(dim=0).values
     amin = (corners - 0.5).abs().min(dim=0).values
     active = (cmin < 0.5 + margin) & (cmax > 0.5 - margin)
     straddle = (cmin < 0.5) & (cmax >= 0.5)
-    score = torch.where(active, straddle.float() - amin, torch.full_like(amin, float("-inf"))).reshape(-1)
-    # stable sort: among tied scores the lower cell id wins, as in lax.top_k
-    top, ids = torch.sort(score, descending=True, stable=True)
-    return ids[:capacity], top[:capacity] > float("-inf"), active.sum()
+    score = torch.where(active, straddle.float() - amin, torch.full_like(amin, float("-inf"))).flatten(-3)
+    # stable sort along each grid's cells: among tied scores the lower cell id wins, as in lax.top_k
+    top, ids = torch.sort(score, dim=-1, descending=True, stable=True)
+    return ids[..., :capacity], top[..., :capacity] > float("-inf"), active.sum(dim=(-3, -2, -1))
 
 
 def _fine_points(ids, g, nc, factor):
@@ -146,7 +151,7 @@ def _scatter_fine(occ_c, fidx, valid, occ_f, factor):
     K * (factor+1)^3]`` written over it at ``fidx``."""
     B, K = fidx.shape[:2]
     S = (occ_c.shape[1] - 1) * factor + 1
-    fill = torch.stack([_upsample_nearest(o, factor) for o in occ_c]).reshape(B, -1)
+    fill = _upsample_nearest(occ_c, factor).reshape(B, -1)
     # padding cells write to one extra trailing slot, dropped afterwards
     level = torch.cat([fill, fill.new_zeros(B, 1)], dim=1)
     flat = ((fidx[..., 0] * S + fidx[..., 1]) * S + fidx[..., 2]).reshape(B, -1)
@@ -190,10 +195,7 @@ def occupancy_grid_hierarchical(
     coarse_pts = coarse_lattice(vox_res, rng, factor, dev)
     occ_c = occupancy_grid(decode_fn, coarse_pts, batch_size, tile_points).reshape(batch_size, Sc, Sc, Sc)
 
-    sel = [_select_active_cells(o, margin, capacity) for o in occ_c]
-    ids = torch.stack([s[0] for s in sel])  # [B, K]
-    valid = torch.stack([s[1] for s in sel])
-    n_active = torch.stack([s[2] for s in sel])
+    ids, valid, n_active = _select_active_cells(occ_c, margin, capacity)  # [B, K], [B, K], [B]
 
     pts, fidx = _fine_points(ids, g, nc, factor)
     occ_f = torch.sigmoid(_decode_tiles(decode_fn, pts, tile_points))  # [B, K * f1^3]
@@ -269,12 +271,11 @@ def attention_frames(attn_xy, image, vox_res, feat_res, n_global=1):
 
 def normalize_pc(pc):
     """Centre ``pc [B, N, 3]`` on its mean and scale by its largest xy extent
-    (reference eval_3D.py:93-102). An all-zero cloud stays zero."""
+    (reference eval_3D.py:93-102), through :func:`_normalize_planes`. An
+    all-zero cloud stays zero."""
     if pc.dim() != 3:
         raise ValueError(f"expected [B, N, 3], got {tuple(pc.shape)}")
-    pc = pc - pc.mean(dim=1, keepdim=True)
-    extent = lambda c: pc[:, :, c].max(dim=-1).values - pc[:, :, c].min(dim=-1).values  # noqa: E731
-    return pc / (torch.maximum(extent(0), extent(1))[:, None, None] + 1e-7)
+    return _normalize_planes(_planar(pc)).transpose(-1, -2).contiguous()
 
 
 def compute_fscore(dist1, dist2, thresholds=DEFAULT_F_THRESHOLDS):
@@ -296,19 +297,61 @@ def chamfer_eval(pc_pred, pc_gt):
     return d1, d2
 
 
-def _rotate(R, pc):
-    """``R [r, 3, 3]`` applied to one cloud ``pc [P, 3]`` -> ``[r, P, 3]``
-    (``einsum("rij,pj->rpi")``, laid out row-contiguous for the kernels)."""
-    return pc @ R.transpose(1, 2)
+def _planar(pc):
+    """Clouds ``[..., P, 3]`` -> their coordinate planes ``[..., 3, P]``."""
+    return pc.transpose(-1, -2).contiguous()
+
+
+def _rows(planes):
+    """Coordinate planes ``[..., 3, P]`` -> the kernels' clouds ``[N, P, 3]``."""
+    return planes.transpose(-1, -2).reshape(-1, planes.shape[-1], 3)
+
+
+def _rotate_planes(R, planes):
+    """``R [B or 1, r, 3, 3]`` applied to each sample's planes ``[B, 3, P]``
+    -> ``[B, r, 3, P]``: coordinate i is ``(R_i0 x + R_i1 y) + R_i2 z``,
+    elementwise in that order, so a sample's result does not depend on the
+    batch it is in (a matrix product's order may depend on its shape)."""
+    prod = planes[:, None, None] * R[..., None]  # [B, r, 3, 3, P]
+    return prod[..., 0, :] + prod[..., 1, :] + prod[..., 2, :]
+
+
+def _normalize_planes(c):
+    """The normalisation of :func:`normalize_pc` on planar clouds ``[..., 3,
+    P]`` (``(x - mean) / (max xy extent + 1e-7)``): each mean and
+    extent is a reduction along the contiguous last axis, one row a cloud and
+    coordinate, whose order does not depend on how many rows the call has
+    (along a strided axis the CPU sums some rows in vector lanes and the rest
+    apart, depending on the count)."""
+    c = c - c.mean(dim=-1, keepdim=True)
+    extent = lambda i: c[..., i, :].amax(dim=-1) - c[..., i, :].amin(dim=-1)  # noqa: E731
+    return c / (torch.maximum(extent(0), extent(1))[..., None, None] + 1e-7)
+
+
+def _normalize_each(planes):
+    """:func:`_normalize_planes` of each sample's ``[3, P]`` planes alone:
+    a reduction over few rows may be laid out by their count on the card, so
+    the per-sample clouds (one row a coordinate) are normalised one sample a
+    call, as the one-sample search does."""
+    return torch.cat([_normalize_planes(c[None]) for c in planes])
 
 
 def _pad_rotations(R, multiple):
-    """Pad ``R [n, 3, 3]`` with copies of its first rotation to a multiple of ``multiple``."""
-    pad = -(-R.shape[0] // multiple) * multiple - R.shape[0]
-    return torch.cat([R, R[:1].expand(pad, 3, 3)])
+    """Pad ``R [..., n, 3, 3]`` with copies of its first rotation to a multiple of ``multiple``."""
+    n = R.shape[-3]
+    pad = -(-n // multiple) * multiple - n
+    return torch.cat([R, R[..., :1, :, :].expand(*R.shape[:-3], pad, 3, 3)], dim=-3)
 
 
-def brute_force_search(
+def _per_row(clouds, r):
+    """Each sample's cloud ``[B, M, 3]`` repeated for its ``r`` rotations:
+    ``[B * r, M, 3]``, read in place (batch stride 0) for one sample and
+    copied once for a batch (the kernels take one batch stride)."""
+    B, M = clouds.shape[:2]
+    return clouds[:, None].expand(B, r, M, 3).reshape(B * r, M, 3)
+
+
+def brute_force_batch(
     pc_pred,
     pc_gt,
     thresholds=DEFAULT_F_THRESHOLDS,
@@ -317,83 +360,102 @@ def brute_force_search(
     fast_coarse=True,
     rot_batch=ROT_BATCH,
 ):
-    """Best-of-rotations alignment of one sample (``eval3d.py:376-474``).
+    """Best-of-rotations alignment of each sample of ``pc_pred [B, P, 3]``
+    against ``pc_gt [B, G, 3]``, the whole batch in each kernel call
+    (``make_brute_force_batch``, ``eval3d.py:485-519``, a ``vmap`` of
+    ``brute_force_search_impl`` ``:376-474``, without a mesh: ranks stand in
+    for it, ``parallel/dist.py``).
 
-    Every rotation of the sphere is applied to ``pc_pred [P, 3]``, both clouds
-    are normalised, and the rotation with the least CD wins. With ``prune =
-    (m, K)`` the search is coarse-to-fine: every rotation is first scored on
-    an m-point subsample of both clouds (a prefix of the i.i.d. predicted
-    cloud, an evenly strided gather of the GT cloud), through K3 when
-    ``fast_coarse`` and else through K2, and only the best K are rescored
-    with the exact full-cloud Chamfer (K2). ``prune=None`` is the exhaustive
-    reference protocol. The reported metrics always come from the exact pass.
+    Every rotation of the sphere is applied to each predicted cloud, both
+    clouds are normalised, and the rotation with the least CD wins. With
+    ``prune = (m, K)`` the search is coarse-to-fine: every rotation is first
+    scored on an m-point subsample of both clouds (a prefix of the i.i.d.
+    predicted cloud, an evenly strided gather of the GT cloud), through K3
+    when ``fast_coarse`` and else through K2, and each sample's best K
+    (a stable top-K of its own scores) are rescored with the exact
+    full-cloud Chamfer (K2). ``prune=None`` is the exhaustive reference
+    protocol. The reported metrics always come from the exact pass.
 
     Rotations go ``rot_batch`` (default :data:`ROT_BATCH`) at a time through
     the exact pass and ``4 * rot_batch`` at a time through the coarse one,
-    padded with the first rotation; the result does not depend on it.
-    Returns a dict: ``acc``, ``comp``, ``f_score [n_thr]``, ``pc_pred [P,
-    3]`` (rotated and normalised), ``pc_gt`` (normalised) and ``rotation [3,
-    3]``.
+    padded with the first rotation; a chunk is one K3 call in each direction
+    (``B * 4 * rot_batch`` rows) or one K2 call in each direction (``B *
+    rot_batch`` rows) for the whole batch, each sample's GT cloud repeated
+    for its rows (:func:`_per_row`). The result does not depend on
+    ``rot_batch``, and a sample's result is bit for bit that of the search
+    on it alone (:func:`brute_force_search`): the kernels' rows are
+    independent of their batch index, and every other step is elementwise,
+    a reduction along a row, or done one sample at a time.
+
+    Returns a dict of per-sample results stacked along the batch axis:
+    ``acc [B]``, ``comp [B]``, ``f_score [B, n_thr]``, ``pc_pred [B, P, 3]``
+    (rotated and normalised), ``pc_gt [B, G, 3]`` (normalised) and
+    ``rotation [B, 3, 3]``.
     """
     dev = pc_pred.device
+    B = pc_pred.shape[0]
     rotations = get_rotation_sphere(*rot_samples, device=dev)
     n_rot = rotations.shape[0]
-    gt_n = normalize_pc(pc_gt[None])
+    pred_planes = _planar(pc_pred)
+    gt_n = _rows(_normalize_each(_planar(pc_gt))).reshape(pc_gt.shape)
 
     if prune is not None and prune[1] < n_rot:
         m, K = prune
-        m = min(m, pc_pred.shape[0], pc_gt.shape[0])
-        pred_sub = pc_pred[:m]
-        gt_idx = np.round(np.linspace(0, pc_gt.shape[0] - 1, m)).astype(np.int64)
-        gt_sub = normalize_pc(pc_gt[torch.as_tensor(gt_idx, device=dev)][None])
+        m = min(m, pc_pred.shape[1], pc_gt.shape[1])
+        pred_sub = pred_planes[..., :m]
+        gt_idx = np.round(np.linspace(0, pc_gt.shape[1] - 1, m)).astype(np.int64)
+        gt_sub = _rows(_normalize_each(_planar(pc_gt[:, torch.as_tensor(gt_idx, device=dev)]))).reshape(B, m, 3)
         cb = min(rot_batch * 4, n_rot)
+        gt_rep = _per_row(gt_sub, cb)
         cd_coarse = []
         for R in _pad_rotations(rotations, cb).split(cb):
-            rot = normalize_pc(_rotate(R, pred_sub))
-            gt_rep = gt_sub.expand(cb, -1, -1)
+            rot = _rows(_normalize_planes(_rotate_planes(R[None], pred_sub)))  # [B * cb, m, 3]
             if fast_coarse:
                 acc_d = torch.sqrt(nn_min_squared_fast(rot, gt_rep))
                 comp_d = torch.sqrt(nn_min_squared_fast(gt_rep, rot))
             else:
                 acc_d, comp_d = chamfer_eval(rot, gt_rep)
-            cd_coarse.append((acc_d.mean(dim=1) + comp_d.mean(dim=1)) / 2.0)
-        cd_coarse = torch.cat(cd_coarse)[:n_rot]
-        # lax.top_k(-cd, K): a stable descending sort, so the lower index wins a tie
-        top = torch.sort(-cd_coarse, descending=True, stable=True).indices[:K]
-        candidates = rotations[top]
+            cd_coarse.append(((acc_d.mean(dim=1) + comp_d.mean(dim=1)) / 2.0).reshape(B, cb))
+        cd_coarse = torch.cat(cd_coarse, dim=1)[:, :n_rot]
+        # lax.top_k(-cd, K) of each sample: a stable descending sort, so the lower index wins a tie
+        top = torch.sort(-cd_coarse, dim=1, descending=True, stable=True).indices[:, :K]
+        candidates = rotations[top]  # [B, K, 3, 3]
     else:
-        candidates = rotations
+        candidates = rotations.expand(B, n_rot, 3, 3)
 
-    n_cand = candidates.shape[0]
+    n_cand = candidates.shape[1]
     rb = min(rot_batch, n_cand)
     cand_p = _pad_rotations(candidates, rb)
+    gt_rep = _per_row(gt_n, rb)
     accs, comps, fs = [], [], []
-    for R in cand_p.split(rb):
-        acc_d, comp_d = chamfer_eval(normalize_pc(_rotate(R, pc_pred)), gt_n.expand(rb, -1, -1))
-        accs.append(acc_d.mean(dim=1))
-        comps.append(comp_d.mean(dim=1))
-        fs.append(compute_fscore(acc_d, comp_d, thresholds))
-    accs, comps = torch.cat(accs)[:n_cand], torch.cat(comps)[:n_cand]
-    fs = torch.cat(fs)[:n_cand]
-    best = torch.argmin((accs + comps) / 2.0)
-    R_best = cand_p[best]
+    for R in cand_p.split(rb, dim=1):
+        acc_d, comp_d = chamfer_eval(_rows(_normalize_planes(_rotate_planes(R, pred_planes))), gt_rep)
+        accs.append(acc_d.mean(dim=1).reshape(B, rb))
+        comps.append(comp_d.mean(dim=1).reshape(B, rb))
+        fs.append(compute_fscore(acc_d, comp_d, thresholds).reshape(B, rb, -1))
+    accs, comps = torch.cat(accs, dim=1)[:, :n_cand], torch.cat(comps, dim=1)[:, :n_cand]
+    fs = torch.cat(fs, dim=1)[:, :n_cand]
+    best = torch.argmin((accs + comps) / 2.0, dim=1)  # the first index on ties, as jnp.argmin
+    pick = torch.arange(B, device=dev)
+    R_best = cand_p[pick, best]
+    pred_best = _rotate_planes(R_best[:, None], pred_planes)[:, 0]
     return {
-        "acc": accs[best],
-        "comp": comps[best],
-        "f_score": fs[best],
-        "pc_pred": normalize_pc((pc_pred @ R_best.T)[None])[0],
-        "pc_gt": gt_n[0],
+        "acc": accs[pick, best],
+        "comp": comps[pick, best],
+        "f_score": fs[pick, best],
+        "pc_pred": _rows(_normalize_each(pred_best)).reshape(pc_pred.shape),
+        "pc_gt": gt_n,
         "rotation": R_best,
     }
 
 
-def brute_force_batch(pc_pred, pc_gt, **kw):
-    """:func:`brute_force_search` of each sample of ``pc_pred [B, P, 3]``,
-    ``pc_gt [B, G, 3]`` (in place of ``make_brute_force_batch``,
-    ``eval3d.py:485-517``), one sample after another: a dict of the results
-    stacked along a leading batch axis."""
-    res = [brute_force_search(p, g, **kw) for p, g in zip(pc_pred, pc_gt)]
-    return {k: torch.stack([r[k] for r in res]) for k in res[0]}
+def brute_force_search(pc_pred, pc_gt, **kw):
+    """Best-of-rotations alignment of one sample (``eval3d.py:376-474``):
+    :func:`brute_force_batch` of the batch of one, ``pc_pred [P, 3]``,
+    ``pc_gt [G, 3]``, and the same keywords. Returns a dict: ``acc``,
+    ``comp``, ``f_score [n_thr]``, ``pc_pred [P, 3]`` (rotated and
+    normalised), ``pc_gt`` (normalised) and ``rotation [3, 3]``."""
+    return {k: v[0] for k, v in brute_force_batch(pc_pred[None], pc_gt[None], **kw).items()}
 
 
 def icp(X1, X2, num_iter=50):

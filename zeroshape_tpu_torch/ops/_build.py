@@ -67,14 +67,15 @@ def library(source, name, signatures, flags=(), restype=ctypes.c_int):
 
     ``signatures`` maps each C entry point to its ctypes ``argtypes``; every
     entry point returns ``restype`` (an ``int``, its ``cudaError_t``, for the
-    kernels).
+    kernels). They are set at every call, so a library first loaded with
+    some of its entry points gains the others' types when asked for them.
     """
     lib = _LOADED.get(name)
     if lib is None:
         build(source, name, flags)
         lib = ctypes.CDLL(library_path(name))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
         _LOADED[name] = lib
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     return lib

@@ -1,13 +1,15 @@
 """Fused implicit-decoder kernel: weight packing, build, and wrapper.
 
 Counterpart of ``zeroshape_tpu/ops/implicit_kernel.py`` (``fused_decode``,
-``pack_decoder_params``; :func:`kernel_supported` is ``fused_supported``).
+``fused_decode_batched``, ``pack_decoder_params``; :func:`kernel_supported`
+is ``fused_supported``).
 The kernel itself is CUDA C++ for ``sm_90a`` in ``csrc/implicit_decoder.cu``;
 its header comment gives the design and the bound. It is compiled with
 ``nvcc`` at first use into ``csrc/build/`` and bound with ctypes.
 
-:func:`fused_decode` takes a CPU tensor to the plain ``Implicit.decode``;
-a CUDA tensor goes to the kernel, or the wrapper raises. It never falls back.
+:func:`fused_decode` (one sample) and :func:`fused_decode_batched` (B
+samples, one launch) take a CPU tensor to the plain ``Implicit.decode``; a
+CUDA tensor goes to the kernel, or the wrapper raises. They never fall back.
 """
 
 from __future__ import annotations
@@ -98,7 +100,7 @@ def _stream_plan():
 
 
 STREAM_ELEMS = sum(K * N for *_, K, N in _stream_plan())  # 2,293,760 bf16 = 4,587,520 bytes
-CACHE_ELEMS = N_BLOCKS * N_HEADS * HEAD_DIM * (MAX_LATENT + V_KEYS)  # 221,184 bf16 = 442,368 bytes
+CACHE_ELEMS = N_BLOCKS * N_HEADS * HEAD_DIM * (MAX_LATENT + V_KEYS)  # 221,184 bf16 = 442,368 bytes a sample
 TILE_POINTS = 128  # points a block decodes per pass over the weight stream
 
 
@@ -230,28 +232,31 @@ def unpack_decoder_params(packed) -> dict:
 
 
 def pack_caches(caches):
-    """Per-block (k, v) ``[1, H, L, hd]`` -> the kernel's flat bf16 cache
-    tiles and ``L``. For each block and head: K^T (``[hd, 208]``, the B of
-    the scores, latent rows zero-padded to ``MAX_LATENT``) then V (``[224,
-    hd]``, the B of P @ V, zero-padded to 7 chunks of 32 rows), each laid out
-    by :func:`_kmajor`."""
+    """Per-block (k, v) ``[B, H, L, hd]`` -> the kernel's bf16 cache tiles
+    ``[B, CACHE_ELEMS]`` (B samples' blocks, one after another) and ``L``, in
+    one pass for the batch. For each sample, block and head: K^T (``[hd,
+    208]``, the B of the scores, latent rows zero-padded to ``MAX_LATENT``)
+    then V (``[224, hd]``, the B of P @ V, zero-padded to 7 chunks of 32
+    rows), each laid out by :func:`_kmajor`."""
     L = caches[0][0].shape[2]
     if L > MAX_LATENT:
         raise ValueError(f"at most {MAX_LATENT} latent tokens, got {L}")
-    k = torch.stack([c[0][0] for c in caches]).to(torch.bfloat16)  # [NB, H, L, hd]
-    v = torch.stack([c[1][0] for c in caches]).to(torch.bfloat16)
+    k = torch.stack([c[0] for c in caches], 1).to(torch.bfloat16)  # [B, NB, H, L, hd]
+    v = torch.stack([c[1] for c in caches], 1).to(torch.bfloat16)
     k = torch.nn.functional.pad(k, (0, 0, 0, MAX_LATENT - L))
     v = torch.nn.functional.pad(v, (0, 0, 0, V_KEYS - L))
-    return torch.cat([_kmajor(k.transpose(-1, -2)), _kmajor(v)], -1).reshape(-1), L
+    return torch.cat([_kmajor(k.transpose(-1, -2)), _kmajor(v)], -1).reshape(k.shape[0], -1), L
 
 
 def unpack_caches(flat, L):
-    """Inverse of :func:`pack_caches`: bf16 K and V ``[NB, H, L, hd]``."""
-    tiles = flat.reshape(N_BLOCKS * N_HEADS, -1)
+    """Inverse of :func:`pack_caches`: bf16 K and V ``[..., NB, H, L, hd]``
+    of ``flat [..., CACHE_ELEMS]``."""
+    lead = flat.shape[:-1]
+    tiles = flat.reshape(-1, HEAD_DIM * (MAX_LATENT + V_KEYS))
     nk = HEAD_DIM * MAX_LATENT
     k = torch.stack([_unkmajor(x[:nk], HEAD_DIM, MAX_LATENT).t()[:L] for x in tiles])
     v = torch.stack([_unkmajor(x[nk:], V_KEYS, HEAD_DIM)[:L] for x in tiles])
-    shape = (N_BLOCKS, N_HEADS, L, HEAD_DIM)
+    shape = (*lead, N_BLOCKS, N_HEADS, L, HEAD_DIM)
     return k.reshape(shape), v.reshape(shape)
 
 
@@ -276,12 +281,18 @@ def build():
     return _build.build(_SOURCE, _NAME)
 
 
-_SIGNATURES = {
+# the one-sample entry, which every build of the kernel has (time_recon
+# k1_builds binds old sources by it alone), and the batched one
+SINGLE_SIGNATURE = {
     "zs_implicit_decode": [
         ctypes.POINTER(_DecoderParams), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ],
 }
+_SIGNATURES = dict(SINGLE_SIGNATURE, zs_implicit_decode_batched=[
+    ctypes.POINTER(_DecoderParams), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+])
 
 
 def _library():
@@ -306,20 +317,39 @@ def fused_decode(impl, caches, points, packed=None):
     (each ``[1, H, L, hd]``); ``packed`` is :func:`pack_decoder_params` of
     ``impl`` (needed on CUDA only). On the CPU this is ``impl.decode``.
     """
+    if points.dim() != 2 or points.shape[1] != 3:
+        raise ValueError(f"points must be [P, 3], got {tuple(points.shape)}")
+    return fused_decode_batched(impl, caches, points[None], packed)[0]
+
+
+def fused_decode_batched(impl, caches, points, packed=None):
+    """Occupancy logits ``[B, P]`` for ``points [B, P, 3]``, sample b against
+    its own latent caches: one launch for the batch.
+
+    ``caches`` is ``Implicit.encode``'s per-block (k, v) list for B samples
+    (each ``[B, H, L, hd]``); ``packed`` is :func:`pack_decoder_params` of
+    ``impl`` (needed on CUDA only). On CUDA each sample's logits equal, bit
+    for bit, those of a launch of that sample alone (the kernel's rows are
+    independent of their tile); the launch is counted in
+    ``fused_decode.launches``. On the CPU this is ``impl.decode`` one sample
+    at a time, which keeps that property: the CPU's batched products are not
+    batch-invariant (a batch of 8 moved some logits by an ulp).
+    """
+    if points.dim() != 3 or points.shape[2] != 3:
+        raise ValueError(f"points must be [B, P, 3], got {tuple(points.shape)}")
     if points.device.type == "cpu":
-        return impl.decode(caches, points[None])[0][0]
+        return torch.cat([impl.decode([(k[b : b + 1], v[b : b + 1]) for k, v in caches], points[b : b + 1])[0]
+                          for b in range(points.shape[0])])
     if points.device.type != "cuda":
         raise ValueError(f"unsupported device {points.device}")
     if packed is None:
         raise ValueError("the CUDA kernel needs pack_decoder_params(impl)")
-    dev = points.device
-    P = points.shape[0]
-    if points.dim() != 2 or points.shape[1] != 3:
-        raise ValueError(f"points must be [P, 3], got {tuple(points.shape)}")
-    if len(caches) != N_BLOCKS or tuple(caches[0][0].shape[:2]) != (1, N_HEADS) or caches[0][0].shape[3] != HEAD_DIM:
-        raise ValueError("caches must be 2 blocks of (k, v) [1, 8, L, 32]")
-    out = torch.empty(P, device=dev, dtype=torch.float32)
-    if P == 0:
+    B, P = points.shape[:2]
+    k0 = caches[0][0]
+    if len(caches) != N_BLOCKS or tuple(k0.shape[:2]) != (B, N_HEADS) or k0.shape[3] != HEAD_DIM:
+        raise ValueError(f"caches must be 2 blocks of (k, v) [{B}, 8, L, 32]")
+    out = torch.empty(B, P, device=points.device, dtype=torch.float32)
+    if B * P == 0:
         return out
 
     launch(_library(), caches, points, packed, out)
@@ -331,15 +361,19 @@ fused_decode.launches = 0
 
 
 def launch(lib, caches, points, packed, out):
-    """Launch ``lib``'s ``zs_implicit_decode`` (the kernel, or a variant of it
-    built with other flags) on CUDA operands; raises on a refused launch."""
+    """Launch ``lib``'s K1 (the kernel, or a variant of it built with other
+    flags) on CUDA operands; raises on a refused launch. ``points [P, 3]``
+    (caches of one sample) -> ``out [P]`` through ``zs_implicit_decode``,
+    the entry every build of the kernel has; ``points [B, P, 3]`` -> ``out
+    [B, P]`` through ``zs_implicit_decode_batched``, one launch."""
     dev = points.device
-    P = points.shape[0]
+    batched = points.dim() == 3
+    B, P = points.shape[:2] if batched else (1, points.shape[0])
     kv, L = pack_caches(caches)
     bf, f32 = torch.bfloat16, torch.float32
     prm = _DecoderParams()
     prm.stream = _ptr(packed["stream"], bf, (STREAM_ELEMS,), dev)
-    prm.caches = _ptr(kv, bf, (CACHE_ELEMS,), dev)
+    prm.caches = _ptr(kv, bf, (B, CACHE_ELEMS), dev)
     prm.point_w = _ptr(packed["point_w"], bf, (3, C), dev)
     prm.point_b = _ptr(packed["point_b"], f32, (C,), dev)
     prm.ln1 = _ptr(packed["ln1"], f32, (N_BLOCKS, 2, C), dev)
@@ -354,15 +388,18 @@ def launch(lib, caches, points, packed, out):
         wp = packed["mlp_wp"][l]
         prm.mlp_wp[l] = None if wp is None else _ptr(wp, bf, (3, C), dev)
         prm.mlp_b[l] = _ptr(packed["mlp_b"][l], f32, (1,) if l == N_LINEARS - 1 else (C,), dev)
-    pts = points.contiguous()
-    _ptr(pts, f32, (P, 3), dev)
+    pts = points.contiguous()  # a batch expanded from one point set is copied once a sample
+    _ptr(pts, f32, points.shape, dev)
+    _ptr(out, f32, points.shape[:-1], dev)
     # one parking slot per block of the persistent grid (at most one block an SM)
     n_slots = torch.cuda.get_device_properties(dev).multi_processor_count
     scratch = torch.empty(n_slots * PARK_FLOATS, device=dev, dtype=f32)
-
-    err = lib.zs_implicit_decode(
-        ctypes.byref(prm), pts.data_ptr(), out.data_ptr(), P, L, scratch.data_ptr(), n_slots,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if batched:
+        err = lib.zs_implicit_decode_batched(ctypes.byref(prm), pts.data_ptr(), out.data_ptr(), B, P, L,
+                                             scratch.data_ptr(), n_slots, stream)
+    else:
+        err = lib.zs_implicit_decode(ctypes.byref(prm), pts.data_ptr(), out.data_ptr(), P, L,
+                                     scratch.data_ptr(), n_slots, stream)
     if err != 0:
         raise RuntimeError(f"implicit decoder kernel launch failed: cudaError_t {err}")

@@ -44,7 +44,7 @@ from zeroshape_tpu_torch.metrics.eval3d import (
 )
 from zeroshape_tpu_torch.models import resolve_compute_dtype
 from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
-from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode, kernel_supported, pack_decoder_params
+from zeroshape_tpu_torch.ops.implicit_kernel import fused_decode_batched, kernel_supported, pack_decoder_params
 from zeroshape_tpu_torch.ops.marching_cubes import sample_surface_points, sample_surface_points_cells
 from zeroshape_tpu_torch.weights import init_like_flax
 
@@ -96,17 +96,15 @@ def sync(device):
 def decode_points(model, caches, pts):
     """Logits ``[B, T]`` of ``pts [B, T, 3]`` against the caches of B samples,
     chosen by the decoder's shapes as the JAX engine chooses by
-    ``fused_supported`` (``shape_engine.py:193-202``): K1, one launch a
-    sample, for a decoder the kernel is built for; any other decoder, or a
-    model with ``fused`` off, runs the plain ``Implicit.decode`` in its
+    ``fused_supported`` (``shape_engine.py:193-202``): K1 for a decoder the
+    kernel is built for, one launch for the whole batch whatever B is
+    (``fused_decode_batched``, as the JAX ``decode_fn``); any other decoder,
+    or a model with ``fused`` off, runs the plain ``Implicit.decode`` in its
     compute dtype, one call for the batch, counted in
     ``decode_points.plain_decodes``."""
     impl = model.graph.impl_network
     if uses_kernel(model):
-        return torch.stack([
-            fused_decode(impl, [(k[b : b + 1], v[b : b + 1]) for k, v in caches], pts[b], model.packed)
-            for b in range(pts.shape[0])
-        ])
+        return fused_decode_batched(impl, caches, pts, model.packed)
     decode_points.plain_decodes += 1
     return impl.decode(caches, pts)[0]
 
@@ -212,7 +210,7 @@ def reconstruct_batch(
     (``shape_engine.py:142-319``).
 
     ``hier=True`` is the coarse-to-fine decode (two decodes: two K1 launches
-    a sample, or two plain decodes of the batch, :func:`decode_points`) and
+    for the batch, or two plain decodes of it, :func:`decode_points`) and
     the sampler over its active cells; ``hier=False`` decodes the dense
     ``(vox_res + 1)^3`` grid (one decode) and samples it with the dense
     sampler. ``batch`` holds NHWC ``rgb_input_map [B, H, W, 3]`` and

@@ -20,7 +20,8 @@ name and power limit. ``--device=cpu`` and dotted options over
   launch) and the dense surface sampler, on ``recon.synthetic_setup``'s
   calibrated model and image.
 * ``hier_parts``: the hierarchical decode's other stages on a random coarse
-  grid (as the JAX script): ``eval3d._select_active_cells`` at the capacity,
+  grid (as the JAX script), each the batched call the decode makes:
+  ``eval3d._select_active_cells`` at the capacity,
   the fine-point gather (``_fine_points``), ``_upsample_nearest``, the
   fine-value scatter (``_scatter_fine``) and the sigmoid of the fine values.
   The JAX script also timed ``_upsample_trilinear``, which
@@ -111,21 +112,22 @@ def components(opt=None, device=None, vox_res=recon.VOX_RES, reps=5):
 
 @torch.inference_mode()
 def hier_parts(device=None, vox_res=recon.VOX_RES, reps=10, capacity=recon.CAPACITY, factor=recon.FACTOR):
-    """The hierarchical decode's other stages, in ms."""
+    """The hierarchical decode's other stages, each the call the decode
+    makes for a batch (here of one random coarse grid), in ms."""
     dev = resolve_device(device)
     nc = vox_res // factor
     f1 = factor + 1
     g = torch.Generator().manual_seed(0)
     occ_c = torch.rand(1, nc + 1, nc + 1, nc + 1, generator=g).to(dev)
     axis = torch.linspace(*recon.RANGE, vox_res + 1, device=dev)
-    ids, valid, n_active = eval3d._select_active_cells(occ_c[0], recon.MARGIN, capacity)
-    ids, valid = ids[None], valid[None]
+    ids, valid, n_active = eval3d._select_active_cells(occ_c, recon.MARGIN, capacity)
     pts, fidx = eval3d._fine_points(ids, axis, nc, factor)
     vals = torch.rand(1, ids.shape[1] * f1**3, generator=g).to(dev)
-    res = {"vox_res": vox_res, "capacity": capacity, "n_active": int(n_active), "fine_points": int(pts.shape[1]),
-           "select_ms": _ms(lambda: eval3d._select_active_cells(occ_c[0], recon.MARGIN, capacity), dev, reps),
+    res = {"vox_res": vox_res, "capacity": capacity, "n_active": int(n_active[0]),
+           "fine_points": int(pts.shape[1]),
+           "select_ms": _ms(lambda: eval3d._select_active_cells(occ_c, recon.MARGIN, capacity), dev, reps),
            "gather_ms": _ms(lambda: eval3d._fine_points(ids, axis, nc, factor), dev, reps),
-           "upsample_nearest_ms": _ms(lambda: eval3d._upsample_nearest(occ_c[0], factor), dev, reps),
+           "upsample_nearest_ms": _ms(lambda: eval3d._upsample_nearest(occ_c, factor), dev, reps),
            "scatter_ms": _ms(lambda: eval3d._scatter_fine(occ_c, fidx, valid, vals, factor), dev, reps),
            "sigmoid_ms": _ms(lambda: torch.sigmoid(vals), dev, reps)}
     print(f"select_active (sort of {nc**3} cells, capacity {capacity}): {res['select_ms']:.3f} ms; point gather "
@@ -294,7 +296,7 @@ def k1_builds(sources, device=None, reps=10, rounds=2, P=K1_POINTS):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
-    libs = [_build.library(s, n, ik._SIGNATURES) for s, n in zip(sources, names)]
+    libs = [_build.library(s, n, ik.SINGLE_SIGNATURE) for s, n in zip(sources, names)]
     impl, caches, packed, points = k1_case(dev, P)
     rows = []
     with torch.inference_mode():
