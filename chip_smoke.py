@@ -76,11 +76,19 @@ Phases (one line or more each, any failure exits non-zero):
      launches in the train steps (0: the step decodes with the plain decoder,
      which has a backward) and in validation (K1 and K2, no K3); a batch-28
      step with the shape loss only (``options/shape.yaml``'s batch), timed
-     with its peak memory; 20 steps on one fixed batch of 8, whose last 5
-     losses must average below the first 5; one fp32 step at tiny width on
+     with its peak memory; one fp32 step at tiny width on
      the card and on the CPU (TF32 off, the same weights, batch and
      stochastic-depth masks): updated parameters within 1e-4; a checkpoint
      written, read back into a fresh graph and optimizer, the same state;
+     the overfit check (``start_overfit`` / ``overfit_check``, a subprocess
+     of ``time_train overfit --deterministic --check`` started as the phase
+     starts and run beside it): the recipe's start trained anew from seed 0
+     on this data under deterministic algorithms, then 20 steps on one fixed
+     batch of 8 continuing its optimizer, every decoder block kept, whose
+     last 5 losses must average below 0.9x the first 5; a line a step (every
+     loss term, the gradient norm, each AdamW group's update norm, the depth
+     head's dead and clamp shares), the 20 losses and their SHA-256 (the
+     same in every call of one tree);
  12. the accuracy gate (tests/test_accuracy_gate.py) through
      ``shape_engine.train`` with ``config.accuracy_gate_opt()``: 24 epochs of
      2 steps at 64^2 from random weights, bf16; its decoder (C=64) is not
@@ -92,8 +100,10 @@ Phases (one line or more each, any failure exits non-zero):
      final metrics written to ``best_val.txt``; s/step, samples/s, peak
      memory, losses and every depth metric; no K1/K2/K3 launch; its visual
      dumps (``vis_log/iter_0``, ``dump_synthetic``);
- 14. 20 depth steps on one fixed batch of 8, continuing the run's optimizer:
-     the last 5 losses must average below 0.9x the first 5;
+ 14. phase 11's overfit check on the ``depth_gen`` recipe (started with
+     phase 11's, run beside phases 11-13): its start as phase 13 trains it,
+     from seed 0 under deterministic algorithms, then 20 depth steps on one
+     fixed batch of 8 continuing its optimizer; the same bound and lines;
  15. one fp32 depth step at H=64 on the card and on the CPU (TF32 off, the
      same weights and batch), held to ``step_disagreements``;
  16. a ``shape_gen`` run staged from the depth run's ``best.ckpt``
@@ -200,9 +210,10 @@ Phases (one line or more each, any failure exits non-zero):
      medians bit-equal, both K1 builds within their bounds, the trace's
      spans holding >= 95% of its device busy time; the launches join the
      kernel line's sums;
- 33. the sample axis (run after phase 27, on the main path's model and
-     phase 9's samples): (a) K1 at B = 8 on 8 synthetic images' caches, at
-     the coarse (35,937) and fine (512,000 random) sizes, one
+ 33. the sample axis (run after phase 10, on the main path's model and
+     phase 9's samples, before anything runs beside the script's phases):
+     (a) K1 at B = 8 on 8 synthetic images' caches, at the coarse (35,937)
+     and fine (512,000 random) sizes, one
      ``fused_decode_batched`` launch against 8 ``fused_decode`` launches:
      each sample bit-equal, and no farther from the plain fp32 decode than
      the plain decode in the compute dtype (max and per-sample mean); (b)
@@ -218,20 +229,33 @@ Phases (one line or more each, any failure exits non-zero):
      the batched code against the parent's per-sample loop in turns (loop,
      batched, batched, loop): s/sample, launches (per batch against per
      sample), the metrics equal in all four runs.
-Then the script's seconds, one JSON line of kernel numbers, the nvidia-smi line again, and the
-result line ``{"ok": true, "device": {...}}``.
+The phases run in the order of ``main``: 1-5, 23, 6-8, 24, 9, 10, then
+33 and 29 (their times are taken with nothing beside them), 11-22, 25, 28,
+30. Two kinds of phase run beside others, each in a process of its own:
+the overfit checks of 11 and 14 (deterministic, so their losses do not
+move) beside 11-13, and phases 31 and 32 (``background_phases``, whose
+numbers are a smoke check) beside 15-30; the times of 11-13 and 15-30 are
+taken beside them. Each phase prints its seconds as it ends (``[phase N:
+...]``; a phase run beside others its own seconds from its start). Then
+the script's seconds with every phase's (``{"phase_seconds": {...},
+"total": ...}``), one JSON line of kernel numbers, the nvidia-smi line
+again, and the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import json
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -763,14 +787,13 @@ def train_run(dev):
 
 
 def train_steps(dev, res, data, opt):
-    """:func:`overfit` on the trained graph, then a batch-28 step with the
-    shape loss only; returns the batch-28 step's seconds."""
+    """A batch-28 step of the trained graph with the shape loss only; returns
+    its seconds."""
     from zeroshape_tpu_torch import config
     from zeroshape_tpu_torch.parallel import train as ptrain
     from zeroshape_tpu_torch.runtime import shape_engine
 
     graph = res["graph"]
-    overfit(dev, graph, res["optimizer"], data, opt)
     big = config.override_options(copy.deepcopy(opt), {"batch_size": 28, "loss_weight": {"depth": None, "intr": None}})
     batch = shape_engine.to_device(data.batch(np.arange(28), 0, 0, opt.training.n_sdf_points), dev)
     optimizer = ptrain.make_optimizer(graph, big.optim)
@@ -790,28 +813,41 @@ def train_steps(dev, res, data, opt):
     return times[1]
 
 
-def overfit(dev, graph, optimizer, data, opt):
-    """20 steps on one fixed batch of 8, continuing the training run's
-    optimizer, with every decoder block kept, so that only the updates change
-    the loss: the mean of the last 5 losses must fall below 0.9 x the mean
-    of the first 5. (A fresh optimizer would first move every parameter by
-    lr at once, and the loss jumps before it falls.)"""
-    from zeroshape_tpu_torch.parallel import train as ptrain
-    from zeroshape_tpu_torch.runtime import shape_engine
+def start_overfit(task):
+    """Phases 11 and 14's overfit check, started to run beside phases 11-13:
+    ``python -m zeroshape_tpu_torch.time_train overfit --task=TASK --starts=1
+    --repeats=1 --deterministic --check`` (a subprocess: cuBLAS reads
+    ``CUBLAS_WORKSPACE_CONFIG`` when it starts, and this process's timed
+    phases keep the default algorithms). It trains the recipe's start as
+    phase 11 (or 13) does, from the recipe's seed 0 on phase 11's data, then
+    takes 20 steps on one fixed batch of 8, continuing the optimizer, every
+    decoder block kept, under deterministic algorithms, so that what runs
+    beside it does not move its losses."""
+    return start_module(["time_train", "overfit", f"--task={task}", "--starts=1", "--repeats=1", "--deterministic",
+                         "--check"])
 
-    batch = shape_engine.to_device(data.batch(data.batch_order(0, 8, 0)[0], 0, 0, opt.training.n_sdf_points), dev)
-    impl = graph.impl_network
-    keep = [torch.full((8,), 1 / (1 - impl.drop_path), device=dev) for _ in impl.blocks_attn]
-    losses = []
-    for _ in range(20):
-        metrics, _ = ptrain.train_step(graph, optimizer, batch, opt, dp_masks=keep)
-        losses.append(float(metrics["loss_all"]))
-    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    print(f"overfit on one batch of 8, 20 steps at lr {optimizer.lr():g}, no block dropped: losses "
-          f"{[round(x, 5) for x in losses]}; mean of the first 5 {first:.5f}, of the last 5 {last:.5f} "
-          f"({last / first:.4f} of it)")
-    if not np.isfinite(losses).all() or not last < 0.9 * first:
-        fail("20 steps on one fixed batch did not lower the loss below 0.9 x its start")
+
+def overfit_check(task, started):
+    """:func:`start_overfit`'s result: the mean of the last 5 losses must fall
+    below 0.9 x the mean of the first 5. Its lines a step (every loss term,
+    the gradient norm, each AdamW group's update norm, the depth head's dead
+    and clamp shares) are printed whether or not it passes; the 20 losses in
+    full with their SHA-256, the same in every call of one tree on the card."""
+    import hashlib
+
+    lines, _, seconds = started.join(600, echo=lambda x: x.startswith(("start 0", "overfit probe")),
+                                     what=f"time_train overfit --task={task}")
+    rec = json.loads(lines[-1])
+    (run,) = rec["runs"]
+    losses = np.asarray(run["losses"], np.float32)
+    digest = hashlib.sha256(losses.tobytes()).hexdigest()
+    print(f"{task} overfit (subprocess, {seconds:.1f} s): 20 deterministic steps on one batch of 8 "
+          f"from the seed-0 start, ratio {run['ratio']:.4f} (bound {rec['bound']}); losses {run['losses']}; "
+          f"sha256 {digest}")
+    if (rec["task"], rec["deterministic"], rec["steps"], rec["window"], rec["bound"], rec["seed"]) != (
+            task, True, 20, 5, 0.9, 0) or len(losses) != 20 or not np.isfinite(losses).all() or run["missed"]:
+        fail(f"the {task} overfit check: {json.dumps({k: v for k, v in rec.items() if k != 'runs'})}, run {run}")
+    return seconds
 
 
 def tiny_step_case(seed=2):
@@ -1126,29 +1162,6 @@ def depth_run(dev, data, out):
     if any(every.values()):
         fail(f"the depth run launched {every}: it has no kernel and no implicit decoder")
     return res, opt
-
-
-def depth_overfit(dev, res, data, opt):
-    """20 depth steps on one fixed batch of 8, continuing the depth run's
-    optimizer: the mean of the last 5 losses must fall below 0.9 x the mean
-    of the first 5."""
-    from zeroshape_tpu_torch.models import graph_depth
-    from zeroshape_tpu_torch.parallel import train as ptrain
-    from zeroshape_tpu_torch.runtime import depth_engine, shape_engine
-
-    batch = shape_engine.to_device(data.batch(data.batch_order(0, 8, 0)[0], 0, 0), dev, depth_engine.MODEL_KEYS)
-    graph, optimizer = res["graph"], res["optimizer"]
-    losses = []
-    for _ in range(20):
-        metrics, _ = ptrain.train_step(graph, optimizer, batch, opt, loss_fn=graph_depth.compute_loss,
-                                       metrics_fn=None)
-        losses.append(float(metrics["loss_all"]))
-    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    print(f"depth overfit on one batch of 8, 20 steps at lr {optimizer.lr():g}: losses "
-          f"{[round(x, 5) for x in losses]}; mean of the first 5 {first:.5f}, of the last 5 {last:.5f} "
-          f"({last / first:.4f} of it)")
-    if not np.isfinite(losses).all() or not last < 0.9 * first:
-        fail("20 depth steps on one fixed batch did not lower the loss below 0.9 x its start")
 
 
 def depth_step_case(seed=3):
@@ -1557,13 +1570,19 @@ def two_ranks(root, out, one_rank, cli_run):
     evaluation's CD within 1e-3; the train CLI against phase 19's run, its
     first loss (the same weights on the same batch) within 1e-2 and first
     validation within 1e-3 (bf16), ``latest.ckpt`` with the same tensors,
-    each within AdamW's reach of phase 19's (3 lr a step). Then the evaluate
-    CLI under two ranks against phase 20's one rank: CD within 1e-3 a sample."""
+    each within AdamW's reach of phase 19's (3 lr a step). Beside all of it,
+    the evaluate CLI under two ranks against phase 20's one rank: CD within
+    1e-3 a sample."""
     from zeroshape_tpu_torch import config, dist_check
 
-    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    drop = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+    env = {k: v for k, v in os.environ.items() if k not in drop}
     run = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2", "-m"]
     one, two, cpu, two_train = (os.path.join(out, d) for d in ("dc1", "dc2", "dc_cpu", "two_rank_train"))
+    dump = os.path.join(out, "two_rank_eval")
+    evaluation = Background(run + ["zeroshape_tpu_torch.evaluate", "--task=shape", f"--data.root={root}",
+                                   f"--output_path={dump}", f"--ckpt={os.path.join(out, 'best.ckpt')}",
+                                   "--eval.brute_force", "--eval.batch_size=2"], drop=drop)
     t0 = time.perf_counter()
     # validation at eval batch 2 (one view a rank; phase 19's is 1): the surface draws follow each sample's index
     argv = ["zeroshape_tpu_torch.dist_check", two, "--full", "train"] + cli_argv(root, two_train) + [
@@ -1615,14 +1634,7 @@ def two_ranks(root, out, one_rank, cli_run):
     del a, b
     shutil.rmtree(two_train)
 
-    dump = os.path.join(out, "two_rank_eval")
-    t0 = time.perf_counter()
-    launch = subprocess.run(run + ["zeroshape_tpu_torch.evaluate", "--task=shape", f"--data.root={root}",
-                                   f"--output_path={dump}", f"--ckpt={os.path.join(out, 'best.ckpt')}",
-                                   "--eval.brute_force", "--eval.batch_size=2"], env=env, capture_output=True,
-                            text=True, timeout=900)
-    if launch.returncode:
-        fail(f"two-rank evaluate CLI failed:\n{launch.stdout[-3000:]}\n{launch.stderr[-3000:]}")
+    _, _, eval_s = evaluation.join(900, what="the two-rank evaluate CLI")
     cds, _ = read_results(dump, "synthetic")
     one_files, two_files = (sorted(os.listdir(os.path.join(d, "dump_synthetic"))) for d in (out, dump))
     eval_dumps(dump, "synthetic", sorted(cds), "the evaluate CLI on two ranks")
@@ -1631,7 +1643,8 @@ def two_ranks(root, out, one_rank, cli_run):
     if one_files != two_files:
         fail("two ranks did not dump every sample once, as one rank does")
     gap = max(abs(cds[i] - (one_rank["acc"][i] + one_rank["comp"][i]) / 2) for i in range(len(one_rank["acc"])))
-    print(f"evaluate CLI on two ranks (one card): {len(cds)} rows in {time.perf_counter() - t0:.1f} s, files "
+    print(f"evaluate CLI on two ranks (one card, beside the rest of the phase): {len(cds)} rows in {eval_s:.1f} s, "
+          f"files "
           f"{sorted(os.listdir(dump))}; largest CD gap to one rank {gap:.3e} (printed at 4 decimals)")
     if len(cds) != len(one_rank["acc"]) or gap > 1e-3:
         fail(f"two-rank evaluation off one rank's by {gap}")
@@ -2092,17 +2105,76 @@ def encoders_phase(dev, main_median, samples, data):
     return summed([rec, val, in_val])
 
 
-def run_module(args, timeout=600, env=None):
-    """``python -m zeroshape_tpu_torch.<args>`` from the checkout's root; its
-    stdout lines and seconds. Fails unless it exits 0."""
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", f"zeroshape_tpu_torch.{args[0]}", *args[1:]], capture_output=True,
-                         text=True, timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)),
-                         env=dict(os.environ, **(env or {})))
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        fail(f"{' '.join(args)} exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
-    return res.stdout.strip().splitlines(), res.stderr, seconds
+class Background:
+    """A subprocess of this script, started from the checkout's root, its
+    output in temporary files (a full pipe would stall it while this process
+    runs other phases). :meth:`join` waits for it; one still running when the
+    script exits (a failure elsewhere) is killed with every process under it."""
+
+    live = []
+
+    def __init__(self, cmd, env=None, drop=()):
+        self.cmd, self.t0 = cmd, time.perf_counter()
+        self.out, self.err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        env = {k: v for k, v in dict(os.environ, **(env or {})).items() if k not in drop}
+        self.proc = subprocess.Popen(cmd, stdout=self.out, stderr=self.err, text=True,
+                                     cwd=os.path.dirname(os.path.abspath(__file__)), env=env)
+        self.ended = None
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+        if not Background.live:
+            atexit.register(Background.kill_all)
+        Background.live.append(self)
+
+    def _wait(self):
+        self.proc.wait()
+        self.ended = time.perf_counter()
+
+    def join(self, timeout, echo=None, what=None):
+        """Its stdout lines, stderr and seconds; the stdout lines for which
+        ``echo(line)`` holds are printed first. Fails unless it exits 0
+        within ``timeout`` seconds of its start."""
+        what = what or " ".join(self.cmd[2:])
+        self.waiter.join(max(timeout - (time.perf_counter() - self.t0), 0))
+        if self.ended is None:
+            fail(f"{what} did not end within {timeout} s")
+        seconds = self.ended - self.t0
+        Background.live.remove(self)
+        (out, err) = [(f.seek(0), f.read())[1] for f in (self.out, self.err)]
+        for line in out.splitlines() if echo else ():
+            if echo(line):
+                print(f"  {what}: {line}")
+        if self.proc.returncode != 0:
+            fail(f"{what} exited {self.proc.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+        return out.strip().splitlines(), err, seconds
+
+    @staticmethod
+    def kill_all():
+        parents = {}  # every process's parent, from /proc
+        for entry in os.listdir("/proc"):
+            try:
+                parents[int(entry)] = int(open(f"/proc/{entry}/stat").read().rsplit(")", 1)[1].split()[1])
+            except (ValueError, OSError):
+                continue
+        tree = {bg.proc.pid for bg in Background.live if bg.proc.poll() is None}
+        while True:
+            grown = tree | {pid for pid, ppid in parents.items() if ppid in tree}
+            if grown == tree:
+                break
+            tree = grown
+        for pid in tree:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+
+
+def start_module(args, env=None):
+    """``python -m zeroshape_tpu_torch.<args>`` as a :class:`Background`."""
+    return Background([sys.executable, "-m", f"zeroshape_tpu_torch.{args[0]}", *args[1:]], env)
+
+
+def run_module(args, timeout=600, env=None, echo=None):
+    """:func:`start_module` and its :meth:`Background.join` at once."""
+    return start_module(args, env).join(timeout, echo, " ".join(args))
 
 
 def bench_family(main_median):
@@ -2214,7 +2286,6 @@ def chain_phase(log_dir=None):
     from zeroshape_tpu_torch.models.graph_shape import ShapeGraph
     from zeroshape_tpu_torch.runtime import checkpoint
 
-    t0 = time.perf_counter()
     root, out = tempfile.mkdtemp(), tempfile.mkdtemp()
     launch_log = os.path.join(root, "launches.jsonl")
     env = {LAUNCH_LOG: launch_log}
@@ -2309,7 +2380,6 @@ def chain_phase(log_dir=None):
     finally:
         shutil.rmtree(root)
         shutil.rmtree(out)
-    print(f"phase 31 took {time.perf_counter() - t0:.1f} s")
     return {k: launches[k] for k in ("K1", "K2", "K3")}
 
 
@@ -2347,7 +2417,6 @@ def timers_phase():
     from zeroshape_tpu_torch.ops import implicit_kernel as ik
     from zeroshape_tpu_torch.timing import finite_numbers
 
-    t0 = time.perf_counter()
     root = tempfile.mkdtemp()
     launch_log = os.path.join(root, "launches.jsonl")
     env = {LAUNCH_LOG: launch_log}
@@ -2417,7 +2486,6 @@ def timers_phase():
             fail(f"phase 32 never launched K1: {launches}")
     finally:
         shutil.rmtree(root)
-    print(f"phase 32 took {time.perf_counter() - t0:.1f} s")
     return {k: launches[k] for k in ("K1", "K2", "K3")}
 
 
@@ -2647,7 +2715,6 @@ def sample_axis_phase(dev, model, samples):
     from zeroshape_tpu_torch import recon
     from zeroshape_tpu_torch.config import synthetic_image
 
-    t0 = time.perf_counter()
     rgb, mask = synthetic_image(model.graph.H, seed=100, B=AXIS_B)
     images = {"rgb_input_map": rgb, "mask_input_map": mask}
     with torch.inference_mode():
@@ -2658,14 +2725,53 @@ def sample_axis_phase(dev, model, samples):
     torch.cuda.empty_cache()
     bf_sample_axis(dev)
     ev = evaluate_sample_axis(model, samples)
-    print(f"phase 33 took {time.perf_counter() - t0:.1f} s")
     return summed([rec, ev])
+
+
+class PhaseClock:
+    """Seconds by phase: :meth:`lap` gives the time since the last lap to the
+    phases it names and prints it; :meth:`line` is the whole table."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def lap(self, phases):
+        now = time.perf_counter()
+        self.seconds[phases] = self.seconds.get(phases, 0.0) + now - self.last
+        print(f"[phase {phases}: {now - self.last:.1f} s; {now - self.t0:.1f} s in all]", flush=True)
+        self.last = now
+
+    def record(self, phases, seconds):
+        """Seconds of phases that ran beside others (in a :class:`Background`)."""
+        self.seconds[phases] = seconds
+        print(f"[phase {phases}: {seconds:.1f} s]", flush=True)
+
+    def line(self):
+        order = sorted(self.seconds, key=lambda k: int(re.match(r"\d+", k)[0]))
+        return json.dumps({"phase_seconds": {k: round(self.seconds[k], 1) for k in order},
+                           "total": round(time.perf_counter() - self.t0, 1)})
+
+
+def background_phases():
+    """Phases 31 and 32 in a process of their own, which :func:`main` starts
+    beside phases 15-30 (both drive subprocesses whose numbers are a smoke
+    check): the chain, then the timers. Its last line is a JSON object of
+    their launches and seconds."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    clock = PhaseClock()
+    chain = chain_phase()
+    clock.lap("31")
+    timers = timers_phase()
+    clock.lap("32")
+    print(json.dumps({"launches": {"31": chain, "32": timers}, "phase_seconds": clock.seconds}))
 
 
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
-    t_start = time.perf_counter()
+    clock = PhaseClock()
     from zeroshape_tpu_torch import resolve_device
     from zeroshape_tpu_torch.data import analytic
     from zeroshape_tpu_torch.ops.marching_cubes import marching_cubes_mesh, write_ply_mesh
@@ -2679,10 +2785,14 @@ def main():
 
     found = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2", "matplotlib", "yaml", "tensorboard")}
     print(f"host modules (the port needs none of them): {found}")
+    clock.lap("1")
 
     build_kernels()
+    clock.lap("2")
     k1 = check_k1(dev)
+    clock.lap("3")
     model, main_launches, level, batch, main_median = main_path(dev)
+    clock.lap("4")
 
     verts, faces = marching_cubes_mesh(level)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2693,7 +2803,9 @@ def main():
         fail("mesh empty or its vertices not finite")
     print(f"mesh: {len(verts)} vertices, {len(faces)} faces, {size} bytes of PLY")
     sampler_determinism(level, dev)
+    clock.lap("5")
     renderer(dev, verts / level.shape[0] * 3.0 - 1.5, faces)
+    clock.lap("23")
 
     with torch.inference_mode():
         exact = unit_clouds(48, 10000, 10000, seed=5)  # one exact brute-force batch
@@ -2702,10 +2814,14 @@ def main():
                      check_k2(rot, gt, "48 rotations of a torus cloud -> shared GT, N=M=10,000"),
                      check_k2(gt, rot, "shared GT -> 48 rotations of a torus cloud, N=M=10,000"))
         del rot, gt
+        clock.lap("6")
         coarse = unit_clouds(192, 1024, 1024, seed=7)  # one coarse batch
         k3_err = max(check_k3(*coarse, "B=192, N=M=1,024"), check_k3(*unit_clouds(3, 1000, 777, seed=8), "B=3, N=1,000, M=777"))
+        clock.lap("7")
     planted_rotation(dev)
+    clock.lap("8")
     attention_pass(dev, model, batch)
+    clock.lap("24")
 
     t0 = time.perf_counter()
     samples = analytic.eval_samples(n_objects=N_EVAL, n_views=2, H=224, seed=0)
@@ -2713,6 +2829,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     final, final_s = evaluate_posture(model, samples, training=False)
     val, _ = evaluate_posture(model, samples, training=True)
+    clock.lap("9")
 
     with torch.inference_mode():
         k2_times = time_chamfer(*exact, fast=False)
@@ -2721,54 +2838,81 @@ def main():
     print(f"final posture: K2 takes 288 x {k2_times[0]:.4f} ms (48 rows) = {k2_sample:.4f} s a sample of the posture's "
           f"{final_s:.4f} s ({k2_sample / final_s:.1%}); the rest, {final_s - k2_sample:.4f} s, is K1's dense "
           f"decode, the encoder, the sampler and the search's host loop")
+    clock.lap("10")
 
+    axis_launches = sample_axis_phase(dev, model, samples)
+    clock.lap("33")
+    del model
+    torch.cuda.empty_cache()
+    bench_launches = bench_family(main_median)
+    torch.cuda.empty_cache()
+    clock.lap("29")
+
+    # phases 11-14's overfit checks run beside them, under deterministic algorithms
+    overfits = {task: start_overfit(task) for task in ("shape", "depth")}
     res, data, opt, train_val = train_run(dev)
     train_steps(dev, res, data, opt)
     cuda_against_cpu(dev)
     checkpoint_round_trip(res, opt)
     del res
     torch.cuda.empty_cache()
+    clock.lap("11")
+    clock.record("11 overfit, beside 11", overfit_check("shape", overfits["shape"]))
+    clock.lap("11 wait")
 
     gate_val = accuracy_gate(dev)
+    clock.lap("12")
     out = tempfile.mkdtemp()  # the depth run's and the staged run's checkpoints
     try:
         depth_res, depth_opt = depth_run(dev, data, os.path.join(out, "depth"))
-        depth_overfit(dev, depth_res, data, depth_opt)
         del depth_res
         torch.cuda.empty_cache()
+        clock.lap("13")
+        clock.record("14 overfit, beside 11-13", overfit_check("depth", overfits["depth"]))
+        clock.lap("14")
+        # phases 31 and 32 run beside 15-30
+        background = Background([sys.executable, "-c", "import chip_smoke; chip_smoke.background_phases()"])
         depth_against_cpu(dev)
+        clock.lap("15")
         staged_val = staged_run(dev, data, os.path.join(out, "depth", "best.ckpt"), os.path.join(out, "shape"))
+        clock.lap("16")
         load_run(dev, data, os.path.join(out, "shape", "latest.ckpt"))
+        clock.lap("17")
     finally:
         shutil.rmtree(out)
 
     root, out = tempfile.mkdtemp(), tempfile.mkdtemp()  # the trees; the CLI run's checkpoints (~2.3 GB each)
     try:
         write_tree(root, data)
+        clock.lap("18")
         cli_val, cli_run = train_cli(root, out)
         cli_run = {k: cli_run[k] for k in ("losses", "val", "it")}  # the trained graph and optimizer go
         torch.cuda.empty_cache()
+        clock.lap("19+27")
         tree_res, tree_eval = evaluate_tree(root, out)
+        clock.lap("20+26")
         write_layout_trees(root)
         layout_eval = evaluate_layouts(root, out)
+        clock.lap("21")
         two_ranks(root, out, tree_res, cli_run)
+        clock.lap("22")
     finally:
         shutil.rmtree(root)
         shutil.rmtree(out)
     demo_k1 = demo_cli(dev)
-    axis_launches = sample_axis_phase(dev, model, samples)
-    del model
-    torch.cuda.empty_cache()
+    clock.lap("25")
     enc_launches = encoders_phase(dev, main_median, samples, data)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    bench_launches = bench_family(main_median)
-    print(f"phase 29 took {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
+    clock.lap("28")
     dry_launches = dry_run()
     torch.cuda.empty_cache()
-    chain_launches = chain_phase()
-    timer_launches = timers_phase()
+    clock.lap("30")
+    lines, _, _ = background.join(1500, echo=lambda x: True, what="phases 31-32")
+    rec = json.loads(lines[-1])
+    chain_launches, timer_launches = rec["launches"]["31"], rec["launches"]["32"]
+    for k, v in rec["phase_seconds"].items():
+        clock.record(f"{k} beside 15-30", v)
+    clock.lap("31+32 wait")
 
     # launches: the sum over the path runs (main path, final and validation
     # posture, the validations of the training run, the gate and the staged
@@ -2797,7 +2941,7 @@ def main():
     if min(launches.values()) == 0:
         fail(f"a kernel of the paths was never launched: {launches}")
 
-    print(f"chip_smoke: phases 1-33 took {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-33 took {time.perf_counter() - clock.t0:.1f} s; {clock.line()}")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "card_bound_ms", "library_ms"]
     print(json.dumps({"kernels": [{k: kern[k] for k in order} for kern in kernels]}))

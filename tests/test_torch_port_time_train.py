@@ -4,6 +4,7 @@ tiny size: the bisection median against the sort median and the JAX
 JSON line."""
 
 import json
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -140,3 +141,73 @@ def test_dead_rule():
     flat = dict(run, dead_share=np.zeros(60), grad_norm=np.full(60, 4e-5))
     assert time_train.is_dead(flat)
     assert not time_train.is_dead(dict(flat, grad_norm=np.r_[np.full(59, 4e-5), 0.1]))
+
+
+def test_overfit_probe_replays_its_start_bit_for_bit(capsys, monkeypatch):
+    """The overfit probe at tiny size: a start of 1 step (one object view
+    each, batch 4, no checkpoint written), two replays of 2 steps. Each step
+    prints every loss term, the gradient norm, each AdamW group's update
+    norm and the head's shares; the replays reload the graph and the
+    optimizer, so on the CPU they repeat bit for bit."""
+    from zeroshape_tpu_torch.data import analytic
+    from zeroshape_tpu_torch.runtime import engine_base
+
+    samples = analytic.train_samples
+    monkeypatch.setattr(analytic, "train_samples", lambda **kw: samples(**dict(kw, n_views=2)))
+    monkeypatch.setattr(engine_base, "save_checkpoint", lambda *a, **kw: None)
+    monkeypatch.setattr(time_train, "OVERFIT_STEPS", 2)
+    monkeypatch.setattr(time_train, "OVERFIT_WINDOW", 1)
+    time_train.main(["overfit", "--repeats=2", "--batch_size=4", "--max_epoch=1", *TINY])
+    out = capsys.readouterr().out.strip().splitlines()
+    rec = json.loads(out[-1])
+    steps = [x for x in out if re.match(r"start 0 run \d step \d+: ", x)]
+    assert len(steps) == 4
+    keys = {"loss_all", "loss_shape", "loss_depth", "loss_intr", "grad_norm", "bias", "dead_share", "clamp_share"}
+    keys |= {f"update_{g}" for g in ("scratch_decay", "scratch_nodecay", "finetune_decay", "finetune_nodecay")}
+    assert set(steps[0].split(": ", 1)[1].split()[::2]) == keys
+    assert rec["sub"] == "overfit" and rec["task"] == "shape" and rec["seed"] == 0 and not rec["deterministic"]
+    assert (rec["steps"], rec["window"], rec["bound"]) == (2, 1, 0.9) and len(rec["runs"]) == 2
+    assert rec["replays_identical"] and rec["identical"]
+    run = rec["runs"][0]
+    assert len(run["losses"]) == 2 and np.isfinite(run["losses"]).all() and np.isfinite(run["ratio"])
+    assert set(run["rise_by_term"]) == {"shape", "depth", "intr"}
+
+
+def _fed(losses):
+    """A stand-in start and replay for :func:`time_train.overfit_probe` whose
+    runs have the given ``loss_all`` (every term a third of it)."""
+    from types import SimpleNamespace
+
+    from zeroshape_tpu_torch import config
+
+    opt = config.shape_gen_opt()
+    optimizer = SimpleNamespace(state_dict=dict, updates=6, lr=lambda: 1e-4)
+    graph = SimpleNamespace(state_dict=dict)
+    run = {"loss_all": np.asarray(losses, np.float32)}
+    run.update({f"loss_{k}": run["loss_all"] / 3 for k in ("shape", "depth", "intr")})
+    return {"overfit_start": lambda *a: (opt, None, graph, optimizer), "overfit_batch": lambda *a: (None, {}),
+            "overfit_run": lambda *a, **kw: run}
+
+
+@pytest.mark.parametrize("case", ["constant", "falling", "spike"])
+def test_overfit_check_exits_non_zero_when_a_run_misses_the_bound(case, capsys, monkeypatch):
+    """``--check`` exits non-zero after the JSON line when the mean of the
+    last 5 losses is not below 0.9 x the first 5's (a constant loss, or a
+    fall that a late spike undoes), and zero when the loss falls."""
+    fall = np.linspace(1.5, 0.8, 20)
+    losses = {"constant": np.full(20, 1.3), "falling": fall, "spike": np.r_[fall[:16], 1.65, 1.81, 1.62, 1.6]}[case]
+    for name, fn in _fed(losses).items():
+        monkeypatch.setattr(time_train, name, fn)
+    argv = ["overfit", "--device=cpu", "--repeats=1", "--check"]
+    if case == "falling":
+        time_train.main(argv)
+    else:
+        with pytest.raises(SystemExit) as exit_:
+            time_train.main(argv)
+        assert exit_.value.code not in (0, None)
+    (run,) = _last_json(capsys)["runs"]
+    assert run["missed"] == (case != "falling")
+    assert np.isclose(run["ratio"], np.mean(losses[-5:]) / np.mean(losses[:5]))
+    if case == "spike":  # the largest rise: from step 15's running minimum to step 17, each term a third
+        assert (run["rise_from"], run["rise_at"]) == (15, 17) and run["rose"] in ("shape", "depth", "intr")
+        assert np.isclose(run["rise_by_term"]["intr"], 10 * (losses[17] - losses[15]) / 3, rtol=1e-5)

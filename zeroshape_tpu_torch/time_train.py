@@ -11,6 +11,8 @@
     python -m zeroshape_tpu_torch.time_train midas [B ...] [--reps=7]
     python -m zeroshape_tpu_torch.time_train depth [--repeats=8] [--steps=300] [--deterministic] \\
         [--data.root=DIR] [--seed=0]
+    python -m zeroshape_tpu_torch.time_train overfit [--task=shape|depth] [--starts=1] [--repeats=4] \\
+        [--deterministic] [--check]
 
 Every subcommand takes ``--device=cpu`` (tiny runs on the CPU) and dotted
 options over the task's preset (``config.shape_gen_opt`` /
@@ -60,14 +62,36 @@ the card's name and power limit:
   that allows it) and resizes the DPT's maps with the separable resize,
   since bilinear ``F.interpolate`` has no deterministic backward on CUDA:
   its runs must then be bit-identical.
+* ``overfit``: the probe of ``chip_smoke.py``'s overfit checks (phase 11,
+  ``--task=shape``; phase 14, ``--task=depth``). A start is the recipe
+  trained as phase 11 (or 13) trains it: ``shape_engine.train`` (or
+  ``depth_engine.train``) for 2 epochs of 3 steps at batch 8 on
+  ``data.analytic.train_samples(4, 8, H, seed=0)``, the recipe's seed,
+  without validation or dumps (``opt.debug``; neither touches the weights).
+  From its graph and optimizer state, ``repeats`` replays take the checks'
+  20 steps on the loader's first batch of epoch 0, continuing the optimizer
+  (AdamW at the recipe's lr), with every stochastic-depth block kept. A line
+  a step: every loss term, the global gradient norm, the norm of each
+  AdamW group's update, the depth head's ``dead_share`` and
+  ``clamp_share``; a line a run: its losses and the ratio of the mean of
+  the last 5 to the mean of the first 5, which must lie below 0.9, and the
+  largest rise of ``loss_all`` over its running minimum with each weighted
+  term's part of it. ``starts`` repeats all of it from as many trainings
+  of the start (under default algorithms each rounds its own way).
+  ``--deterministic`` as for ``depth``, from the start's first step on:
+  every run is then bit-identical. ``--check`` exits non-zero after the
+  JSON line when a run misses the bound.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import glob
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -79,6 +103,7 @@ from zeroshape_tpu_torch.timing import emit, host_ms, median
 
 TOOL = "time_train"
 DEAD_SHARE, DEAD_LOSS, DEAD_GRAD, DEAD_WINDOW = 0.99, 1.0, 1e-3, 50
+OVERFIT_STEPS, OVERFIT_WINDOW, OVERFIT_BOUND = 20, 5, 0.9
 
 
 def _peak_gib(dev):
@@ -392,44 +417,76 @@ def probe_batches(opt, n, dev):
     return out
 
 
+def _norm(tensors):
+    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+
+
+@contextlib.contextmanager
+def step_probes(graph, optimizer):
+    """Hooks on the training steps of ``graph`` (a depth or shape graph) and
+    ``optimizer`` (a ``parallel.train.TrainOptimizer``) for the block's
+    length. Yields ``probe(batch)``, which returns the last step's values as
+    device scalars: ``grad_norm`` (the global norm of the gradients AdamW
+    was handed), ``update_<group>`` (the norm of the update of each AdamW
+    group that holds parameters: the depth graph's are all ``finetune_``),
+    ``bias`` (the depth head's), and the shares of ``batch``'s masked pixels
+    where the head's output before its ReLU is <= 0 (``dead_share``) and
+    above 1 (``clamp_share``)."""
+    head = graph.dpt_depth.scratch.output_conv[4]
+    seen = {}
+    hook = head.register_forward_hook(lambda m, a, out: seen.__setitem__("pre_relu", out.detach()))
+    step, groups = optimizer.step, [(g["group"], g["params"]) for g in optimizer.adamw.param_groups if g["params"]]
+
+    def probed_step():
+        seen["grad_norm"] = _norm([p.grad for p in optimizer.params() if p.grad is not None])
+        before = [[p.detach().clone() for p in params] for _, params in groups]
+        applied = step()
+        for (name, params), old in zip(groups, before):
+            seen[f"update_{name}"] = _norm(torch._foreach_sub([p.detach() for p in params], old))
+        return applied
+
+    def probe(batch):
+        mask = batch["mask_input_map"].permute(0, 3, 1, 2) > 0.5
+        n, pre = mask.sum().clamp(min=1), seen["pre_relu"]
+        out = {k: seen[k] for k in ["grad_norm"] + [f"update_{name}" for name, _ in groups]}
+        return dict(out, bias=head.bias.detach()[0].float(), dead_share=((pre <= 0) & mask).sum() / n,
+                    clamp_share=((pre > 1) & mask).sum() / n)
+
+    optimizer.step = probed_step
+    try:
+        yield probe
+    finally:
+        hook.remove()
+        del optimizer.step
+
+
+def _print_rows(rows, label):
+    """Stack a run's rows of device scalars (one sync), print a line a step;
+    returns ``{key: array over the steps}``."""
+    keys = list(rows[0])
+    table = torch.stack([torch.stack([r[k].float() for k in keys]) for r in rows]).cpu().numpy()
+    for it, r in enumerate(table):
+        print(f"{label}step {it}: " + "  ".join(f"{k} {v:.6g}" for k, v in zip(keys, r)), flush=True)
+    return {k: table[:, i] for i, k in enumerate(keys)}
+
+
 def probe_run(opt, graph, start, batches, label=""):
     """One run of the probe from the weights ``start``; returns its per-step
-    rows ``{loss_all, loss_depth, loss_intr, grad_norm, bias, dead_share,
-    clamp_share}``."""
+    rows ``{loss_all, loss_depth, loss_intr, grad_norm, update_<group> ...,
+    bias, dead_share, clamp_share}``."""
     from zeroshape_tpu_torch.models import graph_depth
     from zeroshape_tpu_torch.parallel import train as ptrain
 
     graph.load_state_dict(start)
     graph.train()
     optimizer = ptrain.make_optimizer(graph, opt.optim)
-    head = graph.dpt_depth.scratch.output_conv[4]
-    seen = {}
-    hook = head.register_forward_hook(lambda m, a, out: seen.__setitem__("pre_relu", out.detach()))
-    step, norms = optimizer.step, []
-
-    def step_with_norm():  # the global norm of the gradients AdamW is handed
-        grads = [p.grad for p in optimizer.params() if p.grad is not None]
-        norms.append(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])))
-        return step()
-
-    optimizer.step = step_with_norm
     rows = []
-    try:
-        for it, batch in enumerate(batches):
+    with step_probes(graph, optimizer) as probe:
+        for batch in batches:
             metrics, _ = ptrain.train_step(graph, optimizer, batch, opt, loss_fn=graph_depth.compute_loss,
                                            metrics_fn=None)
-            mask = batch["mask_input_map"].permute(0, 3, 1, 2) > 0.5
-            n = mask.sum().clamp(min=1)
-            low, high = ((seen["pre_relu"] <= 0) & mask).sum() / n, ((seen["pre_relu"] > 1) & mask).sum() / n
-            rows.append(torch.stack([metrics["loss_all"], metrics["loss_depth"], metrics["loss_intr"], norms[-1],
-                                     head.bias.detach()[0].float(), low.float(), high.float()]))
-    finally:
-        hook.remove()
-    table = torch.stack(rows).cpu().numpy()  # one sync a run
-    keys = ("loss_all", "loss_depth", "loss_intr", "grad_norm", "bias", "dead_share", "clamp_share")
-    for it, r in enumerate(table):
-        print(f"{label}step {it}: " + "  ".join(f"{k} {v:.6g}" for k, v in zip(keys, r)), flush=True)
-    return {k: table[:, i] for i, k in enumerate(keys)}
+            rows.append(dict({k: metrics[k] for k in ("loss_all", "loss_depth", "loss_intr")}, **probe(batch)))
+    return _print_rows(rows, label)
 
 
 def is_dead(run, window=DEAD_WINDOW):
@@ -482,6 +539,118 @@ def depth_probe(repeats=8, steps=300, deterministic=False, device=None, override
             "dead": sum(dead), "identical": identical, "s_per_step": median(seconds) / steps, "runs": summary}
 
 
+def overfit_start(task="shape", device=None, overrides=None):
+    """A start of the overfit checks (see the module doc): ``(opt, data,
+    graph, optimizer)`` after the recipe's 2 epochs of 3 steps."""
+    from zeroshape_tpu_torch.data import analytic
+    from zeroshape_tpu_torch.runtime import depth_engine, shape_engine
+
+    depth = task == "depth"
+    opt = config.override_options(config.depth_gen_opt() if depth else config.shape_gen_opt(), {
+        "max_epoch": 2, "tb": None, "debug": True,
+        "freq": {"print": 1, "scalar": 3, "ckpt_latest": 1000, "eval": 1000}})
+    opt = config.override_options(opt, overrides or {})
+    data = analytic.train_samples(n_objects=4, n_views=8, H=opt.H, seed=0)
+    out = tempfile.mkdtemp()  # the engine's last checkpoint, removed at once
+    try:
+        res = (depth_engine if depth else shape_engine).train(opt, data, out, device=device)
+    finally:
+        shutil.rmtree(out)
+    return opt, data, res["graph"], res["optimizer"]
+
+
+def overfit_batch(opt, data, graph):
+    """The checks' batch (the loader's first of epoch 0) on the graph's
+    device, and the keyword arguments of its steps: the depth loss, or every
+    decoder block kept (its mask ``1 / (1 - drop_path)`` on every sample)."""
+    from zeroshape_tpu_torch.models import graph_depth
+    from zeroshape_tpu_torch.models.graph_depth import DepthGraph
+    from zeroshape_tpu_torch.runtime import depth_engine, shape_engine
+
+    dev, B = next(graph.parameters()).device, opt.batch_size
+    rows = data.batch_order(0, B, 0)[0]
+    if isinstance(graph, DepthGraph):
+        batch = shape_engine.to_device(data.batch(rows, 0, 0), dev, depth_engine.MODEL_KEYS)
+        return batch, dict(loss_fn=graph_depth.compute_loss, metrics_fn=None)
+    batch = shape_engine.to_device(data.batch(rows, 0, 0, opt.training.n_sdf_points), dev)
+    impl = graph.impl_network
+    return batch, dict(dp_masks=[torch.full((B,), 1 / (1 - impl.drop_path), device=dev) for _ in impl.blocks_attn])
+
+
+def overfit_run(opt, graph, optimizer, start, batch, step_kw, label=""):
+    """One replay of the checks' 20 steps from ``start`` (the graph's and the
+    optimizer's state dicts, copied in); returns its per-step rows
+    ``{loss_all, loss_<term> ..., grad_norm, update_<group> ..., bias,
+    dead_share, clamp_share}``."""
+    from zeroshape_tpu_torch.parallel import train as ptrain
+
+    graph.load_state_dict(start["graph"])
+    optimizer.load_state_dict(copy.deepcopy(start["optimizer"]))  # AdamW would step the start's own moments
+    graph.train()
+    rows = []
+    with step_probes(graph, optimizer) as probe:
+        for _ in range(OVERFIT_STEPS):
+            metrics, _ = ptrain.train_step(graph, optimizer, batch, opt, **step_kw)
+            rows.append(dict({k: v for k, v in metrics.items() if k.startswith("loss_")}, **probe(batch)))
+    return _print_rows(rows, label)
+
+
+def overfit_verdict(run, loss_weight):
+    """A run's check and its largest spike: ``ratio`` (the mean of the last 5
+    losses over the mean of the first 5), ``missed`` (not finite, or the
+    ratio not below 0.9), and the largest rise of ``loss_all`` over its
+    running minimum (``rise``, from step ``rise_from`` to ``rise_at``) with
+    each weighted term's part of it (``rise_by_term``, ``rose`` the largest)."""
+    loss = run["loss_all"]
+    first, last = float(np.mean(loss[:OVERFIT_WINDOW])), float(np.mean(loss[-OVERFIT_WINDOW:]))
+    at = int(np.argmax(loss - np.minimum.accumulate(loss)))
+    frm = int(np.argmin(loss[:at + 1]))
+    by_term = {k: float(w * (run[f"loss_{k}"][at] - run[f"loss_{k}"][frm])) for k, w in loss_weight.items()
+               if w is not None and f"loss_{k}" in run}
+    return {"ratio": last / first, "missed": not (np.isfinite(loss).all() and last < OVERFIT_BOUND * first),
+            "first": first, "last": last, "rise": float(loss[at] - loss[frm]), "rise_from": frm, "rise_at": at,
+            "rise_by_term": by_term, "rose": max(by_term, key=by_term.get) if at > frm else None}
+
+
+def overfit_probe(task="shape", starts=1, repeats=4, deterministic=False, device=None, overrides=None):
+    """The overfit probe (see the module doc); returns its JSON fields."""
+    dev = resolve_device(device)
+    if deterministic:
+        _deterministic()
+    runs, seconds = [], []
+    with separable_resize() if deterministic else contextlib.nullcontext():
+        for s in range(starts):
+            t0 = time.perf_counter()
+            opt, data, graph, optimizer = overfit_start(task, dev, overrides)
+            start = {"graph": {k: v.clone() for k, v in graph.state_dict().items()},
+                     "optimizer": copy.deepcopy(optimizer.state_dict())}
+            batch, step_kw = overfit_batch(opt, data, graph)
+            print(f"start {s}: {task} recipe trained {optimizer.updates} steps in {time.perf_counter() - t0:.1f} s; "
+                  f"deterministic {deterministic}; lr {optimizer.lr():g}", flush=True)
+            for r in range(repeats):
+                t0 = time.perf_counter()
+                run = overfit_run(opt, graph, optimizer, start, batch, step_kw, label=f"start {s} run {r} ")
+                seconds.append(time.perf_counter() - t0)
+                runs.append(dict(overfit_verdict(run, dict(opt.loss_weight)), start=s, repeat=r,
+                                 losses=run["loss_all"].tolist()))
+                v = runs[-1]
+                print(f"start {s} run {r}: ratio {v['ratio']:.4f} (first 5 {v['first']:.5f}, last 5 {v['last']:.5f})"
+                      f"{' MISSED' if v['missed'] else ''}; largest rise {v['rise']:.5f} from step {v['rise_from']} "
+                      f"to {v['rise_at']}, by term {v['rise_by_term']}; losses {v['losses']}", flush=True)
+            del graph, optimizer, start, batch
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    same = lambda a, b: np.array_equal(a["losses"], b["losses"])  # noqa: E731
+    missed = sum(v["missed"] for v in runs)
+    print(f"overfit probe ({task}): {missed} of {len(runs)} runs missed {OVERFIT_BOUND} ({starts} starts x {repeats} "
+          f"replays, deterministic {deterministic})", flush=True)
+    return {"task": task, "starts": starts, "repeats": repeats, "deterministic": deterministic,
+            "seed": opt.seed or 0, "steps": OVERFIT_STEPS, "window": OVERFIT_WINDOW, "bound": OVERFIT_BOUND,
+            "missed": missed, "replays_identical": all(same(v, runs[v["start"] * repeats]) for v in runs),
+            "identical": all(same(v, runs[0]) for v in runs), "s_per_step": median(seconds) / OVERFIT_STEPS,
+            "runs": runs}
+
+
 def _pop(args, key, default, cast=None):
     v = args.pop(key, default)
     return cast(v) if cast and v is not None else v
@@ -489,7 +658,7 @@ def _pop(args, key, default, cast=None):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if not argv or argv[0] not in ("batch", "windows", "parts", "loader", "midas", "depth"):
+    if not argv or argv[0] not in ("batch", "windows", "parts", "loader", "midas", "depth", "overfit"):
         raise SystemExit(__doc__)
     sub, rest = argv[0], argv[1:]
     sizes = [int(a) for a in rest if not a.startswith("--")]
@@ -516,10 +685,19 @@ def main(argv=None):
     elif sub == "midas":
         reps = _pop(args, "reps", 7, int)
         emit(TOOL, sub, dev, reps=reps, rows=midas(sizes or [8, 44], reps, dev, _pop(args, "H", 224, int)))
-    else:
+    elif sub == "depth":
         repeats, steps = _pop(args, "repeats", 8, int), _pop(args, "steps", 300, int)
         deterministic = bool(args.pop("deterministic", False))
         emit(TOOL, sub, dev, **depth_probe(repeats, steps, deterministic, dev, args))
+    else:
+        task, starts, repeats = _pop(args, "task", "shape"), _pop(args, "starts", 1, int), _pop(args, "repeats", 4, int)
+        deterministic, check = bool(args.pop("deterministic", False)), bool(args.pop("check", False))
+        out = overfit_probe(task, starts, repeats, deterministic, dev, args)
+        emit(TOOL, sub, dev, **out)
+        if check and out["missed"]:
+            raise SystemExit(f"time_train overfit: {out['missed']} of {len(out['runs'])} runs did not bring the "
+                             f"mean of the last {OVERFIT_WINDOW} losses below {OVERFIT_BOUND} x the first "
+                             f"{OVERFIT_WINDOW}'s")
 
 
 if __name__ == "__main__":
