@@ -1,0 +1,4 @@
+"""The scoring's model FLOPs the inputs need (encoder and latent trunk counted on the
+reference, the dense grid's decoder points at the configuration's widths) over the
+traced window at the bf16 peak."""
+from zsbench.readers import recon_mfu_pct as value  # noqa: F401
